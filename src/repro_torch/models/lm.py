@@ -1,0 +1,222 @@
+"""Model assembly for the dense decoder LM (``repro/models/lm.py``).
+
+Layers are grouped into *superblocks* (one period of the temporal pattern —
+a single layer for uniform stacks) whose parameters are stacked along a
+leading dimension; the reference's ``lax.scan`` over that dimension is a
+loop here.  Decode caches are stacked along the same dimension.
+
+Modes: "prefill" (full sequence, returns the cache) and "decode" (one token
+against the cache, updated in place).  ``model_defs`` covers every
+architecture, so parameter counts hold for all of them; the blocks of the
+other families raise ``NotImplementedError`` until their slice of the port.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from .layers import (attn_cache_defs, attn_defs, attention_decode,
+                     attention_full_seq, attention_prefill_cache, mlp_apply,
+                     mlp_defs, norm_defs, rmsnorm)
+from .moe import moe_defs
+from .params import (ParamDef, count_params, flatten, init_tree, map_defs,
+                     stack_defs, unflatten)
+from .rglru import rglru_defs
+from .ssm import ssm_defs
+
+# block kinds whose forward has not been ported, and the slice that brings it
+NOT_PORTED = {
+    "ssm": "slice 2 (mamba2-780m with the ssd_scan kernel)",
+    "rglru": "slice 3 (recurrentgemma-2b with the rglru_scan kernel)",
+    "moe": "a later slice (mixture of experts)",
+    "xdense": "a later slice (encoder-decoder)",
+}
+
+
+# --------------------------------------------------------------- structure
+def layer_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
+    if cfg.enc_dec:
+        return ("xdense",) * cfg.n_layers
+    return cfg.layer_kinds
+
+
+def structure(cfg: ArchConfig):
+    """(pre_kinds, superblock_kinds, n_super, tail_kinds)."""
+    kinds = layer_kinds(cfg)
+    if cfg.block_pattern:
+        p = len(cfg.block_pattern)
+        n_super = cfg.n_layers // p
+        return (), tuple(cfg.block_pattern), n_super, kinds[n_super * p:]
+    pre = kinds[:cfg.first_dense_layers]
+    rest = kinds[cfg.first_dense_layers:]
+    if any(k != rest[0] for k in rest):
+        raise ValueError("non-pattern stack must be uniform")
+    return pre, (rest[0],), len(rest), ()
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    for kind in layer_kinds(cfg):
+        if kind in NOT_PORTED:
+            raise NotImplementedError(
+                f"{cfg.name}: {kind} blocks are not ported yet; they come "
+                f"with {NOT_PORTED[kind]}")
+
+
+def block_defs(cfg: ArchConfig, kind: str, d_ff_override: Optional[int] = None):
+    D = cfg.d_model
+    if kind == "ssm":
+        return {"ln1": norm_defs(D), "ssm": ssm_defs(cfg)}
+    if kind == "rglru":
+        return {"ln1": norm_defs(D), "rec": rglru_defs(cfg),
+                "ln2": norm_defs(D), "mlp": mlp_defs(cfg)}
+    d = {"ln1": norm_defs(D), "attn": attn_defs(cfg), "ln2": norm_defs(D)}
+    if kind == "moe":
+        d["moe"] = moe_defs(cfg)
+    else:
+        d["mlp"] = mlp_defs(cfg, d_ff=d_ff_override)
+    if kind == "xdense":
+        d["lnx"] = norm_defs(D)
+        d["xattn"] = attn_defs(cfg, cross=True)
+    return d
+
+
+def model_defs(cfg: ArchConfig):
+    D, V = cfg.d_model, cfg.vocab
+    defs = {
+        "embed": ParamDef((V, D), fan_in=D),
+        "final_norm": norm_defs(D),
+    }
+    pre, sb_kinds, n_super, tail = structure(cfg)
+    dec = {}
+    for i, k in enumerate(pre):
+        dec[f"pre{i}"] = block_defs(cfg, "dense",
+                                    d_ff_override=cfg.first_dense_d_ff or None)
+    sb = {f"b{j}": block_defs(cfg, kind) for j, kind in enumerate(sb_kinds)}
+    dec["stack"] = stack_defs(sb, n_super)
+    for i, k in enumerate(tail):
+        dec[f"tail{i}"] = block_defs(cfg, k)
+    defs["dec"] = dec
+    if cfg.enc_dec:
+        enc_sb = {"b0": block_defs(cfg, "enc")}
+        defs["enc"] = {"stack": stack_defs(enc_sb, cfg.n_enc_layers)}
+        defs["enc_norm"] = norm_defs(D)
+    return defs
+
+
+def cache_defs(cfg: ArchConfig, batch: int, ctx: int):
+    """Decode cache of the ported (attention-only) stacks."""
+    _check_ported(cfg)
+    _, sb_kinds, n_super, _ = structure(cfg)
+    sb = {f"b{j}": attn_cache_defs(cfg, batch, ctx)
+          for j in range(len(sb_kinds))}
+    return {"dec": {"stack": stack_defs(sb, n_super)}}
+
+
+def num_params(cfg: ArchConfig) -> int:
+    return count_params(model_defs(cfg))
+
+
+# ------------------------------------------------------------------- model
+class LM(nn.Module):
+    """A model's parameters, registered under the flat keys of the
+    reference's checkpoints (``embed``, ``dec/stack/b0/attn/wq``, ...)."""
+
+    def __init__(self, cfg: ArchConfig, params):
+        super().__init__()
+        self.cfg = cfg
+        for key, t in flatten(params).items():
+            self.register_parameter(key, nn.Parameter(t, requires_grad=False))
+
+    def tree(self):
+        """The parameters as the nested dict the layer functions take."""
+        return unflatten(dict(self.named_parameters()))
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator) -> LM:
+    """Random parameters on ``generator.device``, drawn from ``generator``."""
+    return LM(cfg, init_tree(model_defs(cfg), generator,
+                             getattr(torch, cfg.param_dtype)))
+
+
+def init_cache(cfg: ArchConfig, batch: int, ctx: int, device):
+    cdt = getattr(torch, cfg.compute_dtype)
+    return map_defs(
+        lambda d: torch.zeros(d.shape, device=device,
+                              dtype=getattr(torch, d.dtype) if d.dtype else cdt),
+        cache_defs(cfg, batch, ctx))
+
+
+# ------------------------------------------------------------------ blocks
+def block_apply(p, x, cfg: ArchConfig, kind: str, mode: str, cache, pos,
+                impl: str):
+    """Returns (x, cache_out).  In prefill ``cache`` is the cache capacity;
+    in decode it is this layer's cache, updated in place."""
+    if kind in NOT_PORTED:
+        raise NotImplementedError(f"{kind} blocks come with {NOT_PORTED[kind]}")
+    window = cfg.local_window if (kind == "attn" or cfg.attn_kind == "local") \
+        else None
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if mode == "decode":
+        ao, cache_out = attention_decode(p["attn"], h, cfg, cache, pos,
+                                         window=window)
+    else:  # decoder self-attention is causal; the encoder kind waits
+        ao, kv = attention_full_seq(p["attn"], h, cfg, causal=True,
+                                    window=window, impl=impl)
+        cache_out = attention_prefill_cache(kv[0], kv[1], cfg, cache)
+    x = x + ao
+    x = x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x, cache_out
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree, as views."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+# ----------------------------------------------------------------- forward
+def forward(params, cfg: ArchConfig, tokens, *, mode: str, cache=None,
+            pos: Optional[int] = None, impl: str = "auto", cache_len=None):
+    """Returns (hidden (B, S, D), cache).
+
+    tokens: (B, S) integer (S == 1 for decode); pos: decode position;
+    cache: from ``init_cache`` or a prefill, updated in place by decode."""
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: the port serves (prefill, decode)")
+    _check_ported(cfg)
+    cdt = getattr(torch, cfg.compute_dtype)
+    _, sb_kinds, n_super, _ = structure(cfg)
+    x = params["embed"][tokens].to(cdt)
+    ctx = (cache_len or tokens.shape[1]) if mode == "prefill" else None
+    stack = params["dec"]["stack"]
+    layer_caches = []
+    for i in range(n_super):
+        p_i = _layer(stack, i)
+        c_i = _layer(cache["dec"]["stack"], i) if mode == "decode" else None
+        co = {}
+        for j, kind in enumerate(sb_kinds):
+            name = f"b{j}"
+            x, co[name] = block_apply(
+                p_i[name], x, cfg, kind, mode,
+                c_i[name] if mode == "decode" else ctx, pos, impl)
+        layer_caches.append(co)
+    if mode == "prefill":
+        cache = {"dec": {"stack": _stack(layer_caches)}}
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x, cache
+
+
+def logits_from_hidden(params, h, cfg: ArchConfig):
+    """Tied-embedding LM head, in f32."""
+    return torch.einsum("bsd,vd->bsv", h.float(), params["embed"].float())

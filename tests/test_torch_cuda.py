@@ -1,0 +1,95 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions.  Every test here is marked ``cuda`` and skips without a card; the
+file imports neither JAX nor the JAX package, so it runs where JAX is not
+installed:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: f32 2e-5 and bf16 2e-2 for the kernel (``tests/test_kernels.py``);
+1e-4 for f32 model logits through two layers, where only the order of sums
+differs between the card and the CPU.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.lm import LM, init_params
+from repro_torch.models.steps import make_decode_step, make_prefill_step
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+       torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+SHAPES = [  # (B, S, H, KH, hd, window, causal)
+    (1, 128, 2, 2, 64, None, True),     # tests/test_kernels.py's grid
+    (2, 256, 4, 2, 64, None, True),
+    (1, 256, 4, 1, 128, None, True),
+    (2, 256, 4, 2, 64, 64, True),
+    (1, 512, 2, 2, 64, 128, True),
+    (2, 200, 4, 2, 64, None, True),     # ragged lengths
+    (1, 1000, 4, 2, 64, 96, True),
+    (1, 5, 2, 1, 64, None, True),
+    (1, 300, 4, 2, 128, None, False),   # non-causal
+    (2, 64, 4, 4, 16, None, True),      # the reduced configs' head_dim
+    (1, 100, 2, 1, 16, 16, True),
+]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _np(x):
+    return x.detach().float().cpu().numpy()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KH,hd,window,causal", SHAPES)
+def test_kernel_vs_plain_on_card(cuda_device, B, S, H, KH, hd, window, causal,
+                                 dtype):
+    rng = np.random.default_rng(S + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(cuda_device, dtype)
+               for s in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)))
+    before = LAUNCHES["flash_attn_fwd"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attn_fwd"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "smollm-135m"])
+def test_reduced_model_on_card_matches_cpu(cuda_device, arch):
+    """Prefill (through the kernel) and 4 greedy decode steps on the card
+    against the same weights on the CPU."""
+    cfg = ARCHS[arch].reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    gpu = LM(cfg, {k: t.to(cuda_device) for k, t in cpu.state_dict().items()})
+    B, S, new = 2, 40, 4
+    prompts = torch.from_numpy(
+        np.random.default_rng(5).integers(0, cfg.vocab, size=(B, S)))
+    prefill = make_prefill_step(cfg, cache_len=S + new)
+    decode = make_decode_step(cfg)
+    with torch.inference_mode():
+        before = LAUNCHES["flash_attn_fwd"]
+        glog, gcache = prefill(gpu, {"tokens": prompts.to(cuda_device)})
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attn_fwd"] == before + cfg.n_layers
+        clog, ccache = prefill(cpu, {"tokens": prompts})
+        np.testing.assert_allclose(_np(glog), _np(clog), rtol=1e-4, atol=1e-4)
+        for i in range(new):
+            ctok = clog[:, -1].argmax(-1)[:, None]
+            assert torch.equal(glog[:, -1].argmax(-1)[:, None].cpu(), ctok)
+            glog, gcache = decode(gpu, gcache, ctok.to(cuda_device), S + i)
+            clog, ccache = decode(cpu, ccache, ctok, S + i)
+            np.testing.assert_allclose(_np(glog), _np(clog), rtol=1e-4, atol=1e-4)

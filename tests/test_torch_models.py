@@ -1,0 +1,200 @@
+"""The port's dense model (``repro_torch.models``) against the JAX package.
+
+The same parameters (made by ``repro.models.lm.init_params`` and carried
+over with ``repro_torch.convert``) and the same numpy inputs go through both.
+Reduced configs compute in f32; tolerance 1e-4 absolute and relative, for
+sums taken in another order through two layers and the f32 LM head.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JAX_ARCHS
+from repro.models import layers as jl
+from repro.models.lm import init_cache as jax_init_cache
+from repro.models.lm import init_params as jax_init_params
+from repro.models.lm import num_params as jax_num_params
+from repro.models.steps import make_decode_step as jax_decode_step
+from repro.models.steps import make_prefill_step as jax_prefill_step
+from repro.train.checkpoint import _flatten as jax_flatten
+from repro_torch.configs import ARCHS
+from repro_torch.convert import module_from_tree, state_dict_from_tree
+from repro_torch.models import layers as tl
+from repro_torch.models.lm import init_cache, init_params, num_params
+from repro_torch.models.steps import make_decode_step, make_prefill_step
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+CASES = {
+    "qwen3-0.6b": {},
+    "smollm-135m": {},
+    # local attention: ring-layout cache, windowed prefill and decode
+    "qwen3-0.6b-local": {"attn_kind": "local", "local_window": 8},
+}
+
+
+def _configs(case):
+    arch = case.replace("-local", "")
+    over = CASES[case]
+    return (dataclasses.replace(JAX_ARCHS[arch].reduced(), **over),
+            dataclasses.replace(ARCHS[arch].reduced(), **over))
+
+
+def _pair(case, seed=0):
+    jcfg, tcfg = _configs(case)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(seed))
+    model = module_from_tree(jax.device_get(jparams), tcfg, device="cpu")
+    return jcfg, tcfg, jparams, model
+
+
+def _layer0(tree):
+    return jax.tree_util.tree_map(lambda a: a[0], tree)
+
+
+def _close(got, ref, **tol):
+    np.testing.assert_allclose(np.asarray(got.detach().float()),
+                               np.asarray(ref, np.float32), **(tol or TOL))
+
+
+def _x(shape, seed=1):
+    a = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return jnp.asarray(a), torch.from_numpy(a)
+
+
+def test_rmsnorm_and_rope():
+    jx, tx = _x((2, 5, 4, 16))
+    js, ts = _x((16,), seed=2)
+    _close(tl.rmsnorm(tx, ts, 1e-6), jl.rmsnorm(jx, js, 1e-6))
+    pos = np.arange(3, 8)
+    for theta in (1e4, 1e6):
+        _close(tl.rope(tx, torch.from_numpy(pos), theta),
+               jl.rope(jx, jnp.asarray(pos), theta))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_dense_layers(case):
+    jcfg, tcfg, jparams, model = _pair(case)
+    jp = _layer0(jparams["dec"]["stack"]["b0"])
+    tp = {k: {n: t[0] for n, t in v.items()} if isinstance(v, dict) else v[0]
+          for k, v in model.tree()["dec"]["stack"]["b0"].items()}
+    S = 6
+    jx, tx = _x((2, S, tcfg.d_model))
+    pos_j, pos_t = jnp.arange(S), torch.arange(S)
+    for got, ref in zip(tl._proj_qkv(tp["attn"], tx, tx, tcfg, pos_t, pos_t, True),
+                        jl._proj_qkv(jp["attn"], jx, jx, jcfg, pos_j, pos_j, True)):
+        _close(got, ref)
+    _close(tl.mlp_apply(tp["mlp"], tx, tcfg), jl.mlp_apply(jp["mlp"], jx, jcfg))
+    window = tcfg.local_window if tcfg.attn_kind == "local" else None
+    ty, (tk, tv) = tl.attention_full_seq(tp["attn"], tx, tcfg, causal=True,
+                                         window=window)
+    jy, (jk, jv) = jl.attention_full_seq(jp["attn"], jx, jcfg, causal=True,
+                                         window=window)
+    for got, ref in ((ty, jy), (tk, jk), (tv, jv)):
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_prefill_then_greedy_decode(case):
+    jcfg, tcfg, jparams, model = _pair(case)
+    B, S, new = 2, 12, 4
+    prompts = np.random.default_rng(5).integers(0, tcfg.vocab, size=(B, S))
+    j_prefill = jax.jit(jax_prefill_step(jcfg, cache_len=S + new))
+    j_decode = jax.jit(jax_decode_step(jcfg))
+    t_prefill = make_prefill_step(tcfg, cache_len=S + new)
+    t_decode = make_decode_step(tcfg)
+
+    jlog, jcache = j_prefill(jparams, {"tokens": jnp.asarray(prompts, jnp.int32)})
+    with torch.inference_mode():
+        tlog, tcache = t_prefill(model, {"tokens": torch.from_numpy(prompts)})
+    _close(tlog, jlog)
+    for key in ("k", "v", "pos"):
+        _close(tcache["dec"]["stack"]["b0"][key], jcache["dec"]["stack"]["b0"][key])
+
+    jtok = jnp.argmax(jlog[:, -1], axis=-1)[:, None]
+    ttok = tlog[:, -1].argmax(dim=-1)[:, None]
+    for i in range(new):
+        np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+        jlog, jcache = j_decode(jparams, jcache, jtok, jnp.int32(S + i))
+        with torch.inference_mode():
+            tlog, tcache2 = t_decode(model, tcache, ttok, S + i)
+        assert tcache2 is tcache  # updated in place
+        _close(tlog, jlog)
+        jtok = jnp.argmax(jlog[:, -1], axis=-1)[:, None]
+        ttok = tlog[:, -1].argmax(dim=-1)[:, None]
+    for key in ("k", "v", "pos"):
+        _close(tcache["dec"]["stack"]["b0"][key], jcache["dec"]["stack"]["b0"][key])
+
+
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_count_params_matches_reference(name):
+    assert num_params(ARCHS[name]) == jax_num_params(JAX_ARCHS[name])
+    assert num_params(ARCHS[name].reduced()) == \
+        jax_num_params(JAX_ARCHS[name].reduced())
+
+
+def test_module_keys_are_the_checkpoint_keys_and_convert_checks_both_ways():
+    jcfg, tcfg, jparams, model = _pair("qwen3-0.6b")
+    flat = jax_flatten(jax.device_get(jparams))
+    assert set(model.state_dict()) == set(flat)
+    for key, t in model.state_dict().items():
+        assert tuple(t.shape) == flat[key].shape
+    tree = jax.device_get(jparams)
+    del tree["dec"]["stack"]["b0"]["attn"]["qn"]
+    with pytest.raises(KeyError, match="missing"):
+        state_dict_from_tree(tree, tcfg)
+    tree = jax.device_get(jparams)
+    tree["extra"] = np.zeros(3, np.float32)
+    with pytest.raises(KeyError, match="unexpected"):
+        state_dict_from_tree(tree, tcfg)
+    tree = jax.device_get(jparams)
+    tree["final_norm"] = np.zeros(3, np.float32)
+    with pytest.raises(ValueError, match="final_norm"):
+        state_dict_from_tree(tree, tcfg)
+
+
+def test_convert_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """The no-card machine is made here, whatever machine runs the test."""
+    jcfg, tcfg = _configs("smollm-135m")
+    tree = jax.device_get(jax_init_params(jcfg, jax.random.PRNGKey(0)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module_from_tree(tree, tcfg)
+    model = module_from_tree(tree, tcfg, device="cpu")
+    assert {t.device.type for t in model.state_dict().values()} == {"cpu"}
+
+
+def test_random_init_is_seeded_and_shaped():
+    cfg = ARCHS["smollm-135m"].reduced()
+    a = init_params(cfg, torch.Generator().manual_seed(3)).state_dict()
+    b = init_params(cfg, torch.Generator().manual_seed(3)).state_dict()
+    want = state_dict_from_tree(
+        jax.device_get(jax_init_params(JAX_ARCHS["smollm-135m"].reduced(),
+                                       jax.random.PRNGKey(0))),
+        cfg)
+    assert {k: v.shape for k, v in a.items()} == {k: v.shape for k, v in want.items()}
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "recurrentgemma-2b",
+                                  "granite-moe-3b-a800m", "whisper-medium"])
+def test_unported_families_raise(name):
+    cfg = ARCHS[name].reduced()
+    model = init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="slice"):
+        make_prefill_step(cfg)(model, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_init_cache_matches_reference(case):
+    jcfg, tcfg = _configs(case)
+    ref = jax_flatten(jax_init_cache(jcfg, 2, 20))
+    got = init_cache(tcfg, 2, 20, "cpu")
+    flat = {f"dec/stack/b0/{k}": v for k, v in got["dec"]["stack"]["b0"].items()}
+    assert set(flat) == set(ref)
+    for key, t in flat.items():
+        assert tuple(t.shape) == ref[key].shape
+        assert str(t.dtype).split(".")[1] == str(ref[key].dtype)
+        assert not t.any()
