@@ -5,8 +5,8 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds), compiled for ``sm_90a`` into ``build/repro_torch_kernels/`` at the
 root of the checkout.  A library's file name carries a hash of its sources
 and flags, so an edited source is rebuilt and an unchanged one is not.
-Kernels build on first use, or all at once through ``build_all``.  A failed
-build raises.
+Kernels build on first use, or all at once through ``build_all``, which
+starts one ``nvcc`` per source, all together.  A failed build raises.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -57,10 +58,11 @@ def _library_path(src: Path) -> Path:
 
 def _build(name: str, src: Path, out: Path) -> str:
     """Run nvcc on ``src`` into ``out``; returns nvcc's output."""
+    nvcc = _nvcc()  # raises before any file is made
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode != 0:
@@ -72,14 +74,17 @@ def _build(name: str, src: Path, out: Path) -> str:
 
 
 def build_all() -> Dict[str, str]:
-    """Build every kernel not yet built.
+    """Build every kernel not yet built, one ``nvcc`` per source, all at once.
 
     Returns kernel name -> nvcc's output (``-Xptxas -v``: registers, shared
     memory and spills per kernel); empty for a kernel already built."""
-    logs = {}
-    for name, src in sources().items():
-        out = _library_path(src)
-        logs[name] = "" if out.exists() else _build(name, src, out)
+    jobs = {name: (src, _library_path(src)) for name, src in sources().items()}
+    todo = {name: job for name, job in jobs.items() if not job[1].exists()}
+    logs = dict.fromkeys(jobs, "")
+    with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+        futures = {name: pool.submit(_build, name, *job)
+                   for name, job in todo.items()}
+        logs.update({name: f.result() for name, f in futures.items()})
     return logs
 
 

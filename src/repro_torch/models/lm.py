@@ -6,9 +6,10 @@ leading dimension; the reference's ``lax.scan`` over that dimension is a
 loop here.  Decode caches are stacked along the same dimension.
 
 Modes: "prefill" (full sequence, returns the cache) and "decode" (one token
-against the cache, updated in place).  ``model_defs`` covers every
-architecture, so parameter counts hold for all of them; the blocks of the
-other families raise ``NotImplementedError`` until their slice of the port.
+against the cache, updated in place).  Dense (attention) and Mamba2 (ssm)
+blocks are ported.  ``model_defs`` covers every architecture, so parameter
+counts hold for all of them; the blocks of the other families raise
+``NotImplementedError`` until their slice of the port.
 """
 from __future__ import annotations
 
@@ -25,11 +26,10 @@ from .moe import moe_defs
 from .params import (ParamDef, count_params, flatten, init_tree, map_defs,
                      stack_defs, unflatten)
 from .rglru import rglru_defs
-from .ssm import ssm_defs
+from .ssm import ssm_block, ssm_cache_defs, ssm_defs
 
 # block kinds whose forward has not been ported, and the slice that brings it
 NOT_PORTED = {
-    "ssm": "slice 2 (mamba2-780m with the ssd_scan kernel)",
     "rglru": "slice 3 (recurrentgemma-2b with the rglru_scan kernel)",
     "moe": "a later slice (mixture of experts)",
     "xdense": "a later slice (encoder-decoder)",
@@ -106,12 +106,18 @@ def model_defs(cfg: ArchConfig):
     return defs
 
 
+def block_cache_defs(cfg: ArchConfig, kind: str, batch: int, ctx: int):
+    if kind == "ssm":
+        return ssm_cache_defs(cfg, batch)
+    return attn_cache_defs(cfg, batch, ctx)
+
+
 def cache_defs(cfg: ArchConfig, batch: int, ctx: int):
-    """Decode cache of the ported (attention-only) stacks."""
+    """Decode cache of the ported (uniform) stacks."""
     _check_ported(cfg)
     _, sb_kinds, n_super, _ = structure(cfg)
-    sb = {f"b{j}": attn_cache_defs(cfg, batch, ctx)
-          for j in range(len(sb_kinds))}
+    sb = {f"b{j}": block_cache_defs(cfg, kind, batch, ctx)
+          for j, kind in enumerate(sb_kinds)}
     return {"dec": {"stack": stack_defs(sb, n_super)}}
 
 
@@ -152,10 +158,16 @@ def init_cache(cfg: ArchConfig, batch: int, ctx: int, device):
 # ------------------------------------------------------------------ blocks
 def block_apply(p, x, cfg: ArchConfig, kind: str, mode: str, cache, pos,
                 impl: str):
-    """Returns (x, cache_out).  In prefill ``cache`` is the cache capacity;
-    in decode it is this layer's cache, updated in place."""
+    """Returns (x, cache_out).  In prefill ``cache`` is the cache capacity
+    (which an ssm block does not need); in decode it is this layer's cache,
+    updated in place."""
     if kind in NOT_PORTED:
         raise NotImplementedError(f"{kind} blocks come with {NOT_PORTED[kind]}")
+    if kind == "ssm":
+        h, cache_out = ssm_block(p["ssm"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+                                 cfg, mode, cache if mode == "decode" else None,
+                                 impl=impl)
+        return x + h, cache_out
     window = cfg.local_window if (kind == "attn" or cfg.attn_kind == "local") \
         else None
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)

@@ -5,9 +5,11 @@ installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: f32 2e-5 and bf16 2e-2 for the kernel (``tests/test_kernels.py``);
-1e-4 for f32 model logits through two layers, where only the order of sums
-differs between the card and the CPU.
+Tolerances: f32 2e-5 and bf16 2e-2 for the attention kernel
+(``tests/test_kernels.py``); 2e-4 for the SSD kernel in either input type
+(both sides compute in f32 from the same inputs and write f32: the f32 bound
+of ``tests/test_kernels.py``); 1e-4 for f32 model logits through two layers,
+where only the order of sums differs between the card and the CPU.
 """
 import numpy as np
 import pytest
@@ -17,6 +19,9 @@ from repro_torch.configs import ARCHS
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssd_scan.kernel import ssd_chunk
+from repro_torch.kernels.ssd_scan.ops import ssd
+from repro_torch.kernels.ssd_scan.ref import chunk_cumsum, ssd_chunk_ref
 from repro_torch.models.lm import LM, init_params
 from repro_torch.models.steps import make_decode_step, make_prefill_step
 
@@ -37,6 +42,18 @@ SHAPES = [  # (B, S, H, KH, hd, window, causal)
     (2, 64, 4, 4, 16, None, True),      # the reduced configs' head_dim
     (1, 100, 2, 1, 16, 16, True),
 ]
+
+
+SSD_SHAPES = [  # (Bt, S, H, P, G, N, chunk, model A): tests/test_kernels.py's grid
+    (1, 64, 2, 16, 1, 32, 16, False),
+    (2, 128, 4, 16, 2, 32, 32, False),
+    (1, 96, 2, 32, 1, 16, 32, False),
+    (2, 48, 8, 16, 1, 16, 8, False),        # the reduced config's (P, N, chunk)
+    (1, 512, 4, 64, 1, 128, 256, True),     # mamba2-780m's (P, N, chunk), its A
+    (4, 2048, 48, 64, 1, 128, 256, False),  # mamba2-780m's serving shape
+    (4, 2048, 48, 64, 1, 128, 256, True),
+]
+SSD_TOL = dict(rtol=2e-4, atol=2e-4)
 
 
 @pytest.fixture
@@ -68,10 +85,58 @@ def test_kernel_vs_plain_on_card(cuda_device, B, S, H, KH, hd, window, causal,
     np.testing.assert_allclose(_np(got), _np(ref), **TOL[dtype])
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "smollm-135m"])
+def _ssd_inputs(device, dtype, Bt, S, H, P, G, N, model_a, seed):
+    """Drawn as tests/test_kernels.py draws them; with ``model_a`` the
+    model's A = -linspace(1, 16, H), which takes cum to large negative
+    values within a chunk."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    A = -np.linspace(1.0, 16.0, H) if model_a else -rng.uniform(0.5, 2.0, H)
+    return (f(rng.normal(size=(Bt, S, H, P))).to(dtype),
+            f(rng.uniform(0.1, 0.9, size=(Bt, S, H))), f(A),
+            f(rng.normal(size=(Bt, S, G, N))).to(dtype),
+            f(rng.normal(size=(Bt, S, G, N))).to(dtype),
+            f(rng.normal(size=(H,))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk,model_a", SSD_SHAPES)
+def test_ssd_kernel_vs_plain_on_card(cuda_device, Bt, S, H, P, G, N, chunk,
+                                     model_a, dtype):
+    x, dt, A, B, C, _ = _ssd_inputs(cuda_device, dtype, Bt, S, H, P, G, N,
+                                    model_a, seed=S + H)
+    cum = chunk_cumsum(dt, A, chunk)
+    before = LAUNCHES["ssd_chunk"]
+    y, cin = ssd_chunk(x, dt, cum, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_chunk"] == before + 1
+    y_ref, cin_ref = ssd_chunk_ref(x, dt, cum, B, C, chunk=chunk)
+    for got, ref in ((y, y_ref), (cin, cin_ref)):
+        assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(_np(got), _np(ref), **SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_padded_through_the_kernel_on_card(cuda_device, dtype):
+    """S = 80 with chunk 32: ops.ssd pads to 96 and launches the kernel once."""
+    x, dt, A, B, C, D = _ssd_inputs(cuda_device, dtype, 1, 80, 2, 16, 1, 16,
+                                    False, seed=80)
+    before = LAUNCHES["ssd_chunk"]
+    y, h = ssd(x, dt, A, B, C, D, chunk=32)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_chunk"] == before + 1
+    y_ref, h_ref = ssd(x, dt, A, B, C, D, chunk=32, impl="reference")
+    # both round y to x's dtype once; the f32 values differ only in the order
+    # of sums, so y may differ by one step of its type
+    tol = SSD_TOL if dtype == torch.float32 else dict(rtol=8e-3, atol=8e-3)
+    np.testing.assert_allclose(_np(y), _np(y_ref), **tol)
+    np.testing.assert_allclose(_np(h), _np(h_ref), **SSD_TOL)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "smollm-135m", "mamba2-780m"])
 def test_reduced_model_on_card_matches_cpu(cuda_device, arch):
-    """Prefill (through the kernel) and 4 greedy decode steps on the card
-    against the same weights on the CPU."""
+    """Prefill (through the kernel of the arch's block) and 4 greedy decode
+    steps on the card against the same weights on the CPU."""
     cfg = ARCHS[arch].reduced()
     cpu = init_params(cfg, torch.Generator().manual_seed(0))
     gpu = LM(cfg, {k: t.to(cuda_device) for k, t in cpu.state_dict().items()})
@@ -80,11 +145,12 @@ def test_reduced_model_on_card_matches_cpu(cuda_device, arch):
         np.random.default_rng(5).integers(0, cfg.vocab, size=(B, S)))
     prefill = make_prefill_step(cfg, cache_len=S + new)
     decode = make_decode_step(cfg)
+    kernel = "ssd_chunk" if cfg.ssm else "flash_attn_fwd"
     with torch.inference_mode():
-        before = LAUNCHES["flash_attn_fwd"]
+        before = LAUNCHES[kernel]
         glog, gcache = prefill(gpu, {"tokens": prompts.to(cuda_device)})
         torch.cuda.synchronize()
-        assert LAUNCHES["flash_attn_fwd"] == before + cfg.n_layers
+        assert LAUNCHES[kernel] == before + cfg.n_layers
         clog, ccache = prefill(cpu, {"tokens": prompts})
         np.testing.assert_allclose(_np(glog), _np(clog), rtol=1e-4, atol=1e-4)
         for i in range(new):

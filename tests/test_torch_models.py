@@ -1,4 +1,5 @@
-"""The port's dense model (``repro_torch.models``) against the JAX package.
+"""The port's models (``repro_torch.models``: dense and Mamba2) against the
+JAX package.
 
 The same parameters (made by ``repro.models.lm.init_params`` and carried
 over with ``repro_torch.convert``) and the same numpy inputs go through both.
@@ -15,6 +16,7 @@ import torch
 
 from repro.configs import ARCHS as JAX_ARCHS
 from repro.models import layers as jl
+from repro.models import ssm as jssm
 from repro.models.lm import init_cache as jax_init_cache
 from repro.models.lm import init_params as jax_init_params
 from repro.models.lm import num_params as jax_num_params
@@ -24,6 +26,7 @@ from repro.train.checkpoint import _flatten as jax_flatten
 from repro_torch.configs import ARCHS
 from repro_torch.convert import module_from_tree, state_dict_from_tree
 from repro_torch.models import layers as tl
+from repro_torch.models import ssm as tssm
 from repro_torch.models.lm import init_cache, init_params, num_params
 from repro_torch.models.steps import make_decode_step, make_prefill_step
 
@@ -33,11 +36,16 @@ CASES = {
     "smollm-135m": {},
     # local attention: ring-layout cache, windowed prefill and decode
     "qwen3-0.6b-local": {"attn_kind": "local", "local_window": 8},
+    "mamba2-780m": {},
+    # two SSM groups: B and C read by group, heads h // (H/G)
+    "mamba2-780m-g2": {"ssm_groups": 2},
 }
+DENSE = sorted(c for c in CASES if not c.startswith("mamba2"))
+SSM = sorted(c for c in CASES if c.startswith("mamba2"))
 
 
 def _configs(case):
-    arch = case.replace("-local", "")
+    arch = case.replace("-local", "").replace("-g2", "")
     over = CASES[case]
     return (dataclasses.replace(JAX_ARCHS[arch].reduced(), **over),
             dataclasses.replace(ARCHS[arch].reduced(), **over))
@@ -74,12 +82,17 @@ def test_rmsnorm_and_rope():
                jl.rope(jx, jnp.asarray(pos), theta))
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+def _block0(model):
+    """Layer 0 of the stacked superblock b0, as views."""
+    return {k: {n: t[0] for n, t in v.items()} if isinstance(v, dict) else v[0]
+            for k, v in model.tree()["dec"]["stack"]["b0"].items()}
+
+
+@pytest.mark.parametrize("case", DENSE)
 def test_dense_layers(case):
     jcfg, tcfg, jparams, model = _pair(case)
     jp = _layer0(jparams["dec"]["stack"]["b0"])
-    tp = {k: {n: t[0] for n, t in v.items()} if isinstance(v, dict) else v[0]
-          for k, v in model.tree()["dec"]["stack"]["b0"].items()}
+    tp = _block0(model)
     S = 6
     jx, tx = _x((2, S, tcfg.d_model))
     pos_j, pos_t = jnp.arange(S), torch.arange(S)
@@ -96,6 +109,33 @@ def test_dense_layers(case):
         _close(got, ref)
 
 
+@pytest.mark.parametrize("case", SSM)
+def test_ssm_block_prefill_and_decode(case):
+    """The causal conv, then one Mamba2 block in prefill (S = 12 pads to the
+    reduced chunk of 8) and in one decode step against its cache."""
+    jcfg, tcfg, jparams, model = _pair(case)
+    jp = _layer0(jparams["dec"]["stack"]["b0"])["ssm"]
+    tp = _block0(model)["ssm"]
+    S = 12
+    ju, tu = _x((2, S, tp["conv_w"].shape[1]), seed=3)
+    _close(tssm._causal_conv(tu, tp["conv_w"], tp["conv_b"]),
+           jssm._causal_conv(ju, jp["conv_w"], jp["conv_b"]))
+    jx, tx = _x((2, S, tcfg.d_model))
+    ty, tcache = tssm.ssm_block(tp, tx, tcfg, "prefill")
+    jy, jcache = jssm.ssm_block(jp, jx, jcfg, "prefill")
+    _close(ty, jy)
+    assert set(tcache) == set(jcache) == {"conv", "state"}
+    for key in jcache:
+        _close(tcache[key], jcache[key])
+    jx1, tx1 = _x((2, 1, tcfg.d_model), seed=4)
+    ty, tcache2 = tssm.ssm_block(tp, tx1, tcfg, "decode", tcache)
+    jy, jcache = jssm.ssm_block(jp, jx1, jcfg, "decode", jcache)
+    assert tcache2 is tcache  # updated in place
+    _close(ty, jy)
+    for key in jcache:
+        _close(tcache[key], jcache[key])
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_prefill_then_greedy_decode(case):
     jcfg, tcfg, jparams, model = _pair(case)
@@ -110,7 +150,10 @@ def test_prefill_then_greedy_decode(case):
     with torch.inference_mode():
         tlog, tcache = t_prefill(model, {"tokens": torch.from_numpy(prompts)})
     _close(tlog, jlog)
-    for key in ("k", "v", "pos"):
+    keys = set(jcache["dec"]["stack"]["b0"])  # by block kind
+    assert keys == ({"conv", "state"} if case in SSM else {"k", "v", "pos"})
+    assert set(tcache["dec"]["stack"]["b0"]) == keys
+    for key in keys:
         _close(tcache["dec"]["stack"]["b0"][key], jcache["dec"]["stack"]["b0"][key])
 
     jtok = jnp.argmax(jlog[:, -1], axis=-1)[:, None]
@@ -124,8 +167,25 @@ def test_prefill_then_greedy_decode(case):
         _close(tlog, jlog)
         jtok = jnp.argmax(jlog[:, -1], axis=-1)[:, None]
         ttok = tlog[:, -1].argmax(dim=-1)[:, None]
-    for key in ("k", "v", "pos"):
+    for key in keys:
         _close(tcache["dec"]["stack"]["b0"][key], jcache["dec"]["stack"]["b0"][key])
+
+
+@pytest.mark.parametrize("case", SSM)
+def test_short_prompt_prefills_and_decodes(case):
+    """A 2-token prompt, shorter than the conv window's W - 1 = 3: the port
+    pads the conv cache with zeros (the JAX package's next decode step fails
+    there, so the port is its own reference).  Decoding t after (t0, t1)
+    gives the last-position prefill logits of (t0, t1, t)."""
+    _, tcfg, _, model = _pair(case)
+    tokens = torch.from_numpy(
+        np.random.default_rng(7).integers(0, tcfg.vocab, size=(2, 3)))
+    with torch.inference_mode():
+        _, cache = make_prefill_step(tcfg)(model, {"tokens": tokens[:, :2]})
+        assert cache["dec"]["stack"]["b0"]["conv"].shape[2] == tcfg.conv_width - 1
+        got, _ = make_decode_step(tcfg)(model, cache, tokens[:, 2:], 2)
+        want, _ = make_prefill_step(tcfg)(model, {"tokens": tokens})
+    _close(got, want[:, -1:].numpy())
 
 
 @pytest.mark.parametrize("name", sorted(ARCHS))
@@ -178,7 +238,7 @@ def test_random_init_is_seeded_and_shaped():
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-@pytest.mark.parametrize("name", ["mamba2-780m", "recurrentgemma-2b",
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "recurrentgemma-2b",
                                   "granite-moe-3b-a800m", "whisper-medium"])
 def test_unported_families_raise(name):
     cfg = ARCHS[name].reduced()

@@ -1,0 +1,210 @@
+"""The port's SSD scan (``repro_torch.kernels.ssd_scan``) against the JAX
+package's, at the grid of ``tests/test_kernels.py``.
+
+Inputs are made with numpy from a seed, drawn as ``tests/test_kernels.py``
+draws them, and handed to both packages.  Tolerances:
+- the kernel's function (f32 out from f32 arithmetic on the same inputs, in
+  either input type): 2e-4 abs + rel, the f32 bound of ``tests/test_kernels.py``;
+- ``ops.ssd`` against the JAX package: that file's, y 2e-4 in f32 and 5e-2 in
+  bf16 (one rounding of the output), final state 1e-3;
+- the decode step (f32): 1e-5, the two packages differ only in the order of
+  a few f32 products.
+The CUDA kernel itself is held against ``ssd_chunk_ref`` on the card in
+``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_scan.kernel import ssd_chunk_pallas
+from repro.kernels.ssd_scan.ops import ssd as jax_ssd
+from repro.kernels.ssd_scan.ref import ssd_chunked_ref as jax_chunked
+from repro.kernels.ssd_scan.ref import ssd_decode_step as jax_decode
+from repro.kernels.ssd_scan.ref import ssd_ref as jax_sequential
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.ssd_scan.kernel import ssd_chunk
+from repro_torch.kernels.ssd_scan.ops import ssd
+from repro_torch.kernels.ssd_scan.ref import (chunk_cumsum, ssd_chunk_ref,
+                                              ssd_chunked_ref, ssd_decode_step,
+                                              ssd_ref)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+GRID = [  # (Bt, S, H, P, G, N, chunk): tests/test_kernels.py
+    (1, 64, 2, 16, 1, 32, 16),
+    (2, 128, 4, 16, 2, 32, 32),
+    (1, 96, 2, 32, 1, 16, 32),
+    (1, 80, 2, 16, 1, 16, 32),     # pad 80 -> 96
+]
+KERNEL_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _inputs(seed, Bt, S, H, P, G, N, name, A=None):
+    """numpy arrays drawn as tests/test_kernels.py draws them, as
+    (jax arrays, torch tensors); x, B, C in ``name``, the rest f32."""
+    rng = np.random.default_rng(seed)
+    a = {"x": rng.normal(size=(Bt, S, H, P)),
+         "dt": rng.uniform(0.1, 0.9, size=(Bt, S, H)),
+         "A": -rng.uniform(0.5, 2.0, size=(H,)) if A is None else A,
+         "B": rng.normal(size=(Bt, S, G, N)),
+         "C": rng.normal(size=(Bt, S, G, N)),
+         "D": rng.normal(size=(H,))}
+    a = {k: np.asarray(v, np.float32) for k, v in a.items()}
+    jdt, tdt = DTYPES[name]
+    low = ("x", "B", "C")
+    j = {k: jnp.asarray(v, jdt if k in low else jnp.float32) for k, v in a.items()}
+    t = {k: torch.from_numpy(v).to(tdt if k in low else torch.float32)
+         for k, v in a.items()}
+    return j, t
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      np.asarray(x, np.float32), np.float32)
+
+
+def _args(d):
+    return d["x"], d["dt"], d["A"], d["B"], d["C"], d["D"]
+
+
+@pytest.mark.parametrize("name", sorted(DTYPES))
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk", GRID[:3])
+def test_chunk_ref_vs_pallas_kernel(Bt, S, H, P, G, N, chunk, name):
+    """``ssd_chunk_ref`` (and the wrapper on a CPU tensor) in the model's
+    layout against ``ssd_chunk_pallas`` given the reference's own transposes
+    and head repeat (``repro/kernels/ssd_scan/ops.py:39-51``)."""
+    j, t = _inputs(S + H, Bt, S, H, P, G, N, name)
+    cum = chunk_cumsum(t["dt"], t["A"], chunk)
+    rep, nc = H // G, S // chunk
+    jcum = jnp.asarray(cum.numpy())
+    xh = j["x"].transpose(0, 2, 1, 3).reshape(Bt * H, S, P)
+    dth = j["dt"].transpose(0, 2, 1).reshape(Bt * H, S)
+    cumh = jcum.transpose(0, 2, 1).reshape(Bt * H, S)
+    Bh = jnp.repeat(j["B"], rep, axis=2).transpose(0, 2, 1, 3).reshape(Bt * H, S, N)
+    Ch = jnp.repeat(j["C"], rep, axis=2).transpose(0, 2, 1, 3).reshape(Bt * H, S, N)
+    y_pal, cin_pal = ssd_chunk_pallas(xh, dth, cumh, Bh, Ch, chunk=chunk,
+                                      interpret=True)
+    y_pal = np.asarray(y_pal).reshape(Bt, H, S, P).transpose(0, 2, 1, 3)
+    cin_pal = np.asarray(cin_pal).reshape(Bt, H, nc, P, N).transpose(0, 2, 1, 3, 4)
+    for fn in (ssd_chunk_ref, ssd_chunk):
+        y, cin = fn(t["x"], t["dt"], cum, t["B"], t["C"], chunk=chunk)
+        assert y.dtype == cin.dtype == torch.float32
+        np.testing.assert_allclose(_np(y), y_pal, **KERNEL_TOL)
+        np.testing.assert_allclose(_np(cin), cin_pal, **KERNEL_TOL)
+
+
+def _ssd_tol(name):
+    return dict(rtol=5e-2, atol=5e-2) if name == "bfloat16" \
+        else dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("name", sorted(DTYPES))
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk", GRID)
+def test_ssd_vs_jax_pallas_and_sequential(Bt, S, H, P, G, N, chunk, name):
+    j, t = _inputs(S * H, Bt, S, H, P, G, N, name)
+    y, h = ssd(*_args(t), chunk=chunk)
+    assert y.dtype == t["x"].dtype and h.dtype == torch.float32
+    y_pal, h_pal = jax_ssd(*_args(j), chunk=chunk, impl="pallas", interpret=True)
+    y_seq, h_seq = jax_sequential(*_args(j))
+    for y_ref, h_ref in ((y_pal, h_pal), (y_seq, h_seq)):
+        np.testing.assert_allclose(_np(y), _np(y_ref), **_ssd_tol(name))
+        np.testing.assert_allclose(_np(h), _np(h_ref), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("impl", ["reference", "sequential"])
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk", GRID)
+def test_plain_impls_vs_jax(Bt, S, H, P, G, N, chunk, impl):
+    """``ssd(impl="reference")`` (``ssd_chunked_ref``) and ``"sequential"``
+    (``ssd_ref``), with an initial state, against the JAX package's."""
+    j, t = _inputs(S + 7, Bt, S, H, P, G, N, "float32")
+    h0 = np.random.default_rng(9).normal(size=(Bt, H, P, N)).astype(np.float32)
+    y, h = ssd(*_args(t), chunk=chunk, h0=torch.from_numpy(h0), impl=impl)
+    y_ref, h_ref = jax_ssd(*_args(j), chunk=chunk, h0=jnp.asarray(h0),
+                           impl=impl)
+    np.testing.assert_allclose(_np(y), _np(y_ref), **_ssd_tol("float32"))
+    np.testing.assert_allclose(_np(h), _np(h_ref), rtol=1e-3, atol=1e-3)
+
+
+def test_chunked_ref_matches_jax_chunked_ref():
+    j, t = _inputs(3, 2, 64, 4, 16, 2, 32, "float32")
+    y, h = ssd_chunked_ref(*_args(t), chunk=16)
+    y_ref, h_ref = jax_chunked(*_args(j), chunk=16)
+    np.testing.assert_allclose(_np(y), _np(y_ref), **KERNEL_TOL)
+    np.testing.assert_allclose(_np(h), _np(h_ref), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_decode_step_vs_jax_and_continues_the_scan(G):
+    """One decode step against the JAX package's, and the scan of S + 1
+    tokens equals the scan of S then one decode step."""
+    Bt, S, H, P, N = 2, 32, 4, 16, 16
+    j, t = _inputs(G, Bt, S + 1, H, P, G, N, "float32")
+    h = np.random.default_rng(4).normal(size=(Bt, H, P, N)).astype(np.float32)
+    step = lambda d, hh, tt: (hh, d["x"][:, tt], d["dt"][:, tt], d["A"],
+                              d["B"][:, tt], d["C"][:, tt], d["D"])
+    y, h_new = ssd_decode_step(*step(t, torch.from_numpy(h), 0))
+    y_ref, h_ref = jax_decode(*step(j, jnp.asarray(h), 0))
+    np.testing.assert_allclose(_np(y), _np(y_ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(h_new), _np(h_ref), rtol=1e-5, atol=1e-5)
+
+    cut = {k: v[:, :S] if v.dim() > 1 else v for k, v in t.items()}
+    y_all, _ = ssd_ref(*_args(t))
+    _, h_S = ssd(*_args(cut), chunk=8)
+    y_last, _ = ssd_decode_step(*step(t, h_S, S))
+    np.testing.assert_allclose(_np(y_last), _np(y_all[:, S]), **KERNEL_TOL)
+
+
+def test_model_decay_stays_finite_over_256_row_chunks():
+    """mamba2-780m's A = -linspace(1, 16, H) with dt near 0.8 takes cum to
+    about -3,000 within a 256-row chunk; the decay is masked before the exp,
+    so nothing overflows.  Small Bt, H, P; the model's N and chunk."""
+    Bt, S, H, P, G, N, chunk = 1, 512, 4, 16, 1, 32, 256
+    A = -np.linspace(1.0, 16.0, H)
+    j, t = _inputs(11, Bt, S, H, P, G, N, "float32", A=A)
+    t["dt"] = torch.full_like(t["dt"], 0.8)
+    j["dt"] = jnp.asarray(t["dt"].numpy())
+    cum = chunk_cumsum(t["dt"], t["A"], chunk)
+    assert cum.min().item() < -3000
+    y_intra, cin = ssd_chunk(t["x"], t["dt"], cum, t["B"], t["C"], chunk=chunk)
+    y, h = ssd(*_args(t), chunk=chunk)
+    for out in (y_intra, cin, y, h):
+        assert bool(torch.isfinite(out).all())
+    y_ref, h_ref = jax_sequential(*_args(j))
+    np.testing.assert_allclose(_np(y), _np(y_ref), **KERNEL_TOL)
+    np.testing.assert_allclose(_np(h), _np(h_ref), rtol=1e-3, atol=1e-3)
+
+
+def test_ssd_dispatch_refuses_an_unknown_impl():
+    _, t = _inputs(0, 1, 16, 2, 16, 1, 16, "float32")
+    with pytest.raises(ValueError, match="unknown impl"):
+        ssd(*_args(t), chunk=8, impl="pallas")
+
+
+@pytest.mark.parametrize("x,dt,B,chunk,error", [
+    ((1, 64, 2, 48), torch.float32, (1, 64, 1, 16), 16, r"\(P, N\) = \(48, 16\)"),
+    ((1, 64, 2, 64), torch.float32, (1, 64, 1, 64), 16, r"\(P, N\) = \(64, 64\)"),
+    ((1, 64, 3, 16), torch.float32, (1, 64, 2, 16), 16, "head counts"),
+    ((1, 80, 2, 16), torch.float32, (1, 80, 1, 16), 32, "divide"),
+    ((1, 512, 2, 16), torch.float32, (1, 512, 1, 16), 512, "1..256"),
+    ((1, 64, 2, 16), torch.bfloat16, (1, 64, 1, 16), 16, "dt and cum"),
+    ((1, 64, 2, 16), torch.float32, (1, 64, 1, 16), 16, "CUDA device"),
+])
+def test_wrapper_checks_before_launching(x, dt, B, chunk, error):
+    """Off the CPU the wrapper checks before it touches the kernel; meta
+    tensors reach those checks with no card."""
+    xt = torch.empty(x, device="meta")
+    dtt = torch.empty(x[:3], dtype=dt, device="meta")
+    Bm = torch.empty(B, device="meta")
+    before = LAUNCHES["ssd_chunk"]
+    with pytest.raises((ValueError, TypeError), match=error):
+        ssd_chunk(xt, dtt, dtt, Bm, Bm, chunk=chunk)
+    assert LAUNCHES["ssd_chunk"] == before
+
+
+def test_wrapper_refuses_mixed_input_types():
+    x = torch.empty(1, 64, 2, 16, dtype=torch.bfloat16, device="meta")
+    dt = torch.empty(1, 64, 2, device="meta")
+    B = torch.empty(1, 64, 1, 16, device="meta")
+    with pytest.raises(TypeError, match="the same for all three"):
+        ssd_chunk(x, dt, dt, B, B, chunk=16)
