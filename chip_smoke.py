@@ -9,24 +9,33 @@ Phases; any that fails ends the run with a non-zero exit:
      started together), with nvcc's register, shared-memory and spill report;
   2. every kernel against its plain PyTorch version on the card:
      - flash_attn_fwd over the grid of ``tests/test_kernels.py`` plus a
-       ragged length, a non-causal case and the serving shape, each in f32
-       and bf16 (tolerances: f32 2e-5, bf16 8e-3, abs + rel);
+       ragged length, a non-causal case, head_dim 256 (small, ragged and
+       windowed, and with a window that bites) and both serving shapes
+       (qwen3-0.6b's and recurrentgemma-2b's), each in f32 and bf16
+       (tolerances: f32 2e-5, bf16 8e-3, abs + rel);
      - ssd_chunk against ``ssd_chunk_ref`` over the grid of
        ``tests/test_kernels.py`` and mamba2-780m's serving shape (with that
        test's A and with the model's A), x, B and C in f32 and in bf16, both
        outputs (f32 on both sides: 2e-4 abs + rel); and the padded grid case
        through the whole ``ops.ssd`` against ``ssd_chunked_ref``;
+     - rglru_scan against ``rglru_scan_ref`` over the grid of
+       ``tests/test_kernels.py``, a ragged length, h0 None and
+       recurrentgemma-2b's serving shape with the model's kind of decay, a
+       and u in f32 and in bf16, both outputs (f32 1e-5, bf16 h_seq 8e-3);
   3. each kernel's time at its serving shape beside its plain version, one
      PyTorch library call computing the same function where there is one (a
      yardstick the port never calls) and the least time the card could take;
   4. the main paths, each with the launch counts set to 0 just before it and
      read just after: ``repro_torch.launch.serve`` serves 8 requests of
-     full-width qwen3-0.6b, then of full-width mamba2-780m (random weights
-     from a seed); after each, kernel against plain in the model: for
-     qwen3-0.6b the logits of one prefill of the same weights; for
-     mamba2-780m every layer's SSD output on the plain path's bf16
-     activations, and the logits of one prefill in f32 compute (its bf16
-     logits are printed beside the plain path's own spread, not gated);
+     full-width qwen3-0.6b, then of full-width mamba2-780m, then of
+     full-width recurrentgemma-2b (random weights from a seed), each with
+     its expected launches per kernel per prefill round and none of any other
+     kernel; after each, kernel against plain in the model: for qwen3-0.6b
+     the logits of one prefill of the same weights; for mamba2-780m every
+     layer's SSD output, and for recurrentgemma-2b every layer's RG-LRU scan
+     and attention output, on the plain path's bf16 activations, then the
+     logits of one prefill in f32 compute (their bf16 logits are printed
+     beside the plain path's own spread, not gated);
   5. a JSON line per the kernel table, then the last line
      ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -44,6 +53,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12    # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bytes/s
 # Kernel against plain, abs + rel.  f32: tests/test_kernels.py's 2e-5.  bf16:
 # both compute in f32 from the same bf16 inputs and round the output to bf16
@@ -61,8 +71,22 @@ GRID = [
     (2, 1000, 4, 2, 64, None, True),
     (1, 300, 4, 2, 128, None, False),
 ]
+GRID_HD256 = [  # recurrentgemma-2b's head_dim: small, ragged + windowed, biting window
+    (1, 128, 4, 1, 256, None, True),
+    (1, 300, 10, 1, 256, 128, True),
+    (1, 4096, 10, 1, 256, 2048, True),
+]
 SERVE_SHAPE = (4, 2048, 16, 8, 64, None, True)  # qwen3-0.6b prefill attention
-BATCH, PROMPT = 4, 2048  # the traffic of both served models
+RG_SERVE_SHAPE = (4, 2048, 10, 1, 256, 2048, True)  # recurrentgemma-2b's
+BATCH, PROMPT = 4, 2048  # the traffic of every served model
+# Each path's kernel launches per prefill round: one per layer of the kind
+# that runs it (recurrentgemma-2b: 8 attention and 18 RG-LRU layers of 26);
+# none of any other kernel.
+PATHS = {
+    "qwen3-0.6b": {"flash_attn_fwd": 28},
+    "mamba2-780m": {"ssd_chunk": 48},
+    "recurrentgemma-2b": {"flash_attn_fwd": 8, "rglru_scan": 18},
+}
 
 
 def serve_argv(arch: str) -> list:
@@ -91,7 +115,16 @@ LOGIT_ATOL = 0.11
 #   (relative ~1e-7, phase 2): 2e-3, four times the plain path's own spread
 #   under one f32 ulp of noise in that term (printed in every run), and equal
 #   greedy tokens.
-SSM_F32_LOGIT_ATOL = 2e-3
+# recurrentgemma-2b is checked the same way: every layer's RG-LRU scan
+# (h_seq after its cast to bf16: one bf16 step, 8e-3 abs + rel; h_final:
+# RGLRU_TOL) and attention output (one bf16 step), kernel against plain on
+# the plain path's bf16 activations; the logits of one prefill in f32
+# compute, where the paths differ only in the order of f32 sums (the scan's
+# sequential order against the plain path's log-depth one, the attention
+# kernel's against the plain blocked softmax), within the same 2e-3 with
+# equal greedy tokens; its bf16 logits printed beside the plain path's own
+# spread under one f32 ulp of noise in its scan output.
+F32_LOGIT_ATOL = 2e-3
 # ssd_chunk against ssd_chunk_ref: both compute in f32 from the same inputs
 # and write f32, so the f32 bound of tests/test_kernels.py, abs + rel.
 SSD_TOL = 2e-4
@@ -106,6 +139,22 @@ SSD_GRID = [
 ]
 SSD_SERVE = (4, 2048, 48, 64, 1, 128, 256)  # mamba2-780m prefill SSD
 SSD_PADDED = (1, 80, 2, 16, 1, 16, 32, False)
+# rglru_scan against rglru_scan_ref: the kernel takes the oracle's f32
+# product and sum in the same order with the same rounding (no FMA), so the
+# f32 outputs should agree exactly; 1e-5 abs + rel.  h_seq from bf16 inputs
+# is rounded to bf16 once on both sides: one bf16 step, TOL["bfloat16"].
+RGLRU_TOL = 1e-5
+# (B, S, R, h0, model a): tests/test_kernels.py's grid, a ragged S and R,
+# h0 None, then recurrentgemma-2b's serving shape with the model's decay
+# a = exp(-8 softplus(1) sigmoid(z)), about 3e-5 to 1.
+RGLRU_GRID = [
+    (1, 64, 64, True, False),
+    (2, 128, 128, True, False),
+    (2, 96, 192, True, False),
+    (2, 300, 100, True, False),
+    (1, 37, 5, False, False),
+]
+RGLRU_SERVE = (4, 2048, 2560, False, True)  # recurrentgemma-2b prefill scan
 
 
 class SmokeFailure(RuntimeError):
@@ -152,13 +201,13 @@ def excess_error(got, ref, tol: float) -> tuple:
     return d.max().item(), (d - tol - tol * ref.float().abs()).max().item()
 
 
-def kernel_vs_plain(device) -> float:
-    """Phase 2; returns the max abs error at the serving shape in bf16."""
+def kernel_vs_plain(device) -> dict:
+    """Phase 2; returns the max abs error at each serving shape in bf16."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    err = None
-    for i, shape in enumerate(GRID + [SERVE_SHAPE]):
+    errs = {}
+    for i, shape in enumerate(GRID + GRID_HD256 + [SERVE_SHAPE, RG_SERVE_SHAPE]):
         for name in ("float32", "bfloat16"):
             q, k, v = qkv(shape, getattr(torch, name), device, seed=i)
             B, S, H, KH, hd, window, causal = shape
@@ -172,7 +221,8 @@ def kernel_vs_plain(device) -> float:
             check(got.dtype == q.dtype and got.shape == q.shape
                   and bool(torch.isfinite(got).all()), "bad kernel output")
             check(excess <= 0, f"kernel disagrees with plain at {shape} {name}")
-    return err  # the serving shape in bf16, the main path's case
+            errs[shape] = err  # bf16 last: the main paths' case
+    return {shape: errs[shape] for shape in (SERVE_SHAPE, RG_SERVE_SHAPE)}
 
 
 def ssd_inputs(shape, dtype, device, seed):
@@ -312,31 +362,116 @@ def attention_bound_ms(shape, dtype_bytes: int, peak_flops: float) -> tuple:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_timing(device) -> dict:
-    """Phase 3, at the serving shape (bf16, causal)."""
+def kernel_timing(device, shape) -> dict:
+    """Phase 3 for flash_attn_fwd at a serving shape (bf16, causal; the
+    window, where there is one, does not bite at S = 2048, so SDPA's causal
+    mask computes the same function)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    q, k, v = qkv(SERVE_SHAPE, torch.bfloat16, device, seed=99)
+    B, S, H, KH, hd, window, causal = shape
+    check(causal and (window is None or window >= S), "SDPA's mask differs")
+    q, k, v = qkv(shape, torch.bfloat16, device, seed=99)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     out = {
-        "ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=True), 20),
-        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True), 5),
+        "ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=True,
+                                                  window=window), 20),
+        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                  window=window), 5),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), 20),
     }
-    out["bound_ms"], out["bound_by"] = attention_bound_ms(SERVE_SHAPE, 2,
+    out["bound_ms"], out["bound_by"] = attention_bound_ms(shape, 2,
                                                           PEAK_BF16_FLOPS)
-    print("[timing] flash_attn_fwd at B=4 S=2048 H=16 KH=8 hd=64 bf16 causal: "
+    print(f"[timing] flash_attn_fwd at B={B} S={S} H={H} KH={KH} hd={hd} "
+          f"window={window} bf16 causal: "
           + ", ".join(f"{k} {v}" for k, v in out.items()))
     return out
 
 
-def serve_and_check(device, arch: str, kernel: str) -> dict:
-    """Phase 4 for one model: the main path, its launch counts (``kernel``
-    once per layer per prefill round, no other kernel), and in-model
-    parity of kernel against plain.  Returns the launch counts."""
+def rglru_inputs(shape, dtype, device, seed):
+    """a, u, h0 of one case: a in [0.5, 0.999) as tests/test_kernels.py
+    draws it, or the model's decay a = exp(-8 softplus(1) sigmoid(z)) with
+    the gated u = sqrt(1 - a^2) z'; a and u in ``dtype``, h0 f32 or None."""
+    import torch
+    import torch.nn.functional as F
+    B, S, R, with_h0, model_a = shape
+    g = torch.Generator(device).manual_seed(seed)
+    z = torch.randn(B, S, R, generator=g, device=device)
+    if model_a:
+        a = torch.exp(-8 * F.softplus(torch.tensor(1.0, device=device))
+                      * torch.sigmoid(z))
+        u = torch.sqrt(1 - a * a) * torch.randn(B, S, R, generator=g,
+                                                device=device)
+    else:
+        a = 0.5 + 0.499 * torch.rand(B, S, R, generator=g, device=device)
+        u = z
+    h0 = torch.randn(B, R, generator=g, device=device) if with_h0 else None
+    return a.to(dtype), u.to(dtype), h0
+
+
+def rglru_kernel_vs_plain(device) -> float:
+    """Phase 2 for rglru_scan; returns the max abs error of both outputs at
+    the serving shape with f32 a and u, the main path's case."""
+    import torch
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    err = None
+    for i, shape in enumerate(RGLRU_GRID + [RGLRU_SERVE]):
+        for name in ("bfloat16", "float32"):
+            a, u, h0 = rglru_inputs(shape, getattr(torch, name), device,
+                                    seed=200 + i)
+            hs, h_final = rglru_scan_fwd(a, u, h0)
+            torch.cuda.synchronize(device)
+            hs_ref, final_ref = rglru_scan_ref(a, u, h0)
+            check(hs.dtype == u.dtype and hs.shape == u.shape
+                  and h_final.dtype == torch.float32
+                  and bool(torch.isfinite(hs).all())
+                  and bool(torch.isfinite(h_final).all()), "bad rglru_scan output")
+            tol = TOL[name] if name == "bfloat16" else RGLRU_TOL
+            e_seq, excess_seq = excess_error(hs, hs_ref, tol)
+            e_fin, excess_fin = excess_error(h_final, final_ref, RGLRU_TOL)
+            print(f"[kernel] rglru_scan {name} (B,S,R,h0,model a)={shape}: "
+                  f"min a {a.min().item():.3e}, max|err| h_seq {e_seq:.3e} "
+                  f"(tol {tol:g} abs + rel), h_final {e_fin:.3e} "
+                  f"(tol {RGLRU_TOL:g})")
+            check(excess_seq <= 0 and excess_fin <= 0,
+                  f"rglru_scan disagrees with plain at {shape} {name}")
+            err = max(e_seq, e_fin)  # f32 last: the main path's case
+    return err
+
+
+def rglru_timing(device) -> dict:
+    """Phase 3 for rglru_scan at the serving shape (f32 a and u, as the
+    model's gates give them).  No single PyTorch call computes a linear
+    recurrence: library_ms is null.  The bound counts a and u read once and
+    h_seq and h_final written once; 2 flops per element."""
+    import torch
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    a, u, h0 = rglru_inputs(RGLRU_SERVE, torch.float32, device, seed=98)
+    B, S, R = a.shape
+    out = {
+        "ms": time_ms(lambda: rglru_scan_fwd(a, u, h0), 50),
+        "plain_ms": time_ms(lambda: rglru_scan_ref(a, u, h0), 3, warmup=1),
+        "library_ms": None,
+    }
+    t_bytes = 4 * (3 * B * S * R + B * R) / PEAK_BYTES * 1e3
+    t_ops = 2 * B * S * R / PEAK_F32_FLOPS * 1e3
+    out["bound_ms"] = max(t_bytes, t_ops)
+    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[timing] rglru_scan at B={B} S={S} R={R} f32 (no single PyTorch "
+          "call computes it: library_ms null): "
+          + ", ".join(f"{k} {v}" for k, v in out.items()))
+    return out
+
+
+def serve_and_check(device, arch: str) -> dict:
+    """Phase 4 for one model: the main path, its launch counts (each
+    kernel of ``PATHS[arch]`` that many times per prefill round, no other
+    kernel), and in-model parity of kernel against plain.  Returns the
+    launch counts."""
     import numpy as np
     import torch
     from repro_torch.configs import ARCHS
@@ -353,18 +488,16 @@ def serve_and_check(device, arch: str, kernel: str) -> dict:
     print("[serve] " + json.dumps(stats))
     print(f"[serve] launches during serving {arch}: {launches}")
     check(stats["arch"] == cfg.name, "serve did not run the full-width config")
-    check(launches.get(kernel, 0) == cfg.n_layers * stats["rounds"],
-          f"expected {cfg.n_layers} {kernel} launches per prefill round")
-    check(all(n == 0 for k, n in launches.items() if k != kernel),
-          f"{arch} launched a kernel of another path: {launches}")
+    want = {k: n * stats["rounds"] for k, n in PATHS[arch].items()}
+    check(launches == want, f"{arch}: expected launches {want}, saw {launches}")
 
     model = init_params(cfg, torch.Generator(device).manual_seed(0))
     prompt = np.random.default_rng(1).integers(0, cfg.vocab, size=(BATCH, PROMPT))
     batch = {"tokens": torch.from_numpy(prompt).to(device)}
-    if cfg.ssm:
-        ssd_layer_parity(cfg, model, batch)
+    if cfg.ssm or "rglru" in cfg.layer_kinds:
+        (ssd_layer_parity if cfg.ssm else hybrid_layer_parity)(cfg, model, batch)
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-        logit_parity(cfg32, model, batch, SSM_F32_LOGIT_ATOL, device)
+        logit_parity(cfg32, model, batch, F32_LOGIT_ATOL, device)
         logit_parity(cfg, model, batch, None, device)  # printed, not gated
     else:
         logit_parity(cfg, model, batch, LOGIT_ATOL, device)
@@ -381,24 +514,31 @@ def prefill_logits(cfg, model, batch, impl: str):
 
 
 @contextlib.contextmanager
-def ulp_noise_in_plain_ssd(device):
-    """The plain SSD intra term with one f32 ulp of relative noise: the
-    spread of the plain path against itself, a floor for kernel vs plain."""
+def ulp_noise_in_plain(cfg, device):
+    """The plain path with one f32 ulp of relative noise in the f32 output of
+    its SSD intra term (mamba2-780m) or of its RG-LRU scan (recurrentgemma-
+    2b): the spread of the plain path against itself, a floor for kernel vs
+    plain."""
     import torch
-    from repro_torch.kernels.ssd_scan import ref
-    plain = ref.ssd_chunk_ref
+    if cfg.ssm:
+        from repro_torch.kernels.ssd_scan import ref as module
+        name = "ssd_chunk_ref"
+    else:
+        from repro_torch.kernels.rglru_scan import ops as module
+        name = "rglru_scan_assoc"
+    plain = getattr(module, name)
     g = torch.Generator(device).manual_seed(5)
 
     def noisy(*args, **kwargs):
-        y, chunk_in = plain(*args, **kwargs)
+        y, rest = plain(*args, **kwargs)
         noise = torch.randn(y.shape, generator=g, device=y.device)
-        return y * (1 + 2 ** -23 * noise), chunk_in
+        return y * (1 + 2 ** -23 * noise), rest
 
-    ref.ssd_chunk_ref = noisy
+    setattr(module, name, noisy)
     try:
         yield
     finally:
-        ref.ssd_chunk_ref = plain
+        setattr(module, name, plain)
 
 
 def logit_parity(cfg, model, batch, tol, device) -> None:
@@ -415,10 +555,11 @@ def logit_parity(cfg, model, batch, tol, device) -> None:
     top2 = plain.topk(2, dim=-1).values
     gaps = [round(g, 4) for g in (top2[:, 0] - top2[:, 1]).tolist()]
     floor = ""
-    if cfg.ssm:
-        with ulp_noise_in_plain_ssd(device):
+    if cfg.ssm or "rglru" in cfg.layer_kinds:
+        with ulp_noise_in_plain(cfg, device):
             noisy = prefill_logits(cfg, model, batch, "reference")
-        floor = (f", plain vs plain with one f32 ulp of noise in its SSD term "
+        term = "SSD term" if cfg.ssm else "RG-LRU scan output"
+        floor = (f", plain vs plain with one f32 ulp of noise in its {term} "
                  f"{(noisy - plain).abs().max().item():.4e}")
     print(f"[parity] {cfg.name} {cfg.compute_dtype} full-width prefill logits, "
           f"kernel vs plain: max|diff| {diff:.4e} (tol {tol or 'none: not gated'})"
@@ -427,7 +568,6 @@ def logit_parity(cfg, model, batch, tol, device) -> None:
     if tol is not None:
         check(diff <= tol, "kernel and plain prefill logits disagree")
         check(same, "kernel and plain prefill pick different greedy tokens")
-
 
 def ssd_layer_parity(cfg, model, batch) -> None:
     """Every layer's SSD, kernel against plain, from the same inputs: a
@@ -465,6 +605,57 @@ def ssd_layer_parity(cfg, model, batch) -> None:
           f"{worst['h_final']:.3e} (tol {SSD_TOL:g})")
 
 
+def hybrid_layer_parity(cfg, model, batch) -> None:
+    """Every RG-LRU layer's scan and every attention layer's output, kernel
+    against plain, from the same inputs: a prefill along the plain path that
+    also runs the kernels at each layer's call and compares.  The scan's
+    kernel is held against its oracle (``impl="sequential"``), its h_seq
+    after the model's cast to the compute dtype."""
+    import torch
+    from repro_torch.models import layers, rglru
+    plain_scan, plain_attn = rglru.rglru_scan, layers.flash_attention
+    worst = {"h_seq": 0.0, "h_final": 0.0, "attention": 0.0}
+    seen = {"rglru": 0, "attention": 0}
+    cdt = getattr(torch, cfg.compute_dtype)
+
+    def compare(what, got, ref, tol):
+        err, excess = excess_error(got, ref, tol)
+        check(got.dtype == ref.dtype and bool(torch.isfinite(got).all())
+              and excess <= 0, f"{what} of the kernel path disagrees with plain "
+              f"(max|err| {err:.3e})")
+        worst[what] = max(worst[what], err)
+
+    def scan_both(a, u, h0=None, *, impl):
+        hs, h = plain_scan(a, u, h0, impl="auto")
+        hs_ref, h_ref = plain_scan(a, u, h0, impl="sequential")
+        compare("h_seq", hs.to(cdt), hs_ref.to(cdt), TOL[cfg.compute_dtype])
+        compare("h_final", h, h_ref, RGLRU_TOL)
+        seen["rglru"] += 1
+        return plain_scan(a, u, h0, impl=impl)
+
+    def attn_both(q, k, v, *, causal, window, impl):
+        o_ref = plain_attn(q, k, v, causal=causal, window=window, impl=impl)
+        o = plain_attn(q, k, v, causal=causal, window=window, impl="auto")
+        compare("attention", o, o_ref, TOL[cfg.compute_dtype])
+        seen["attention"] += 1
+        return o_ref
+
+    rglru.rglru_scan, layers.flash_attention = scan_both, attn_both
+    try:
+        prefill_logits(cfg, model, batch, "reference")
+    finally:
+        rglru.rglru_scan, layers.flash_attention = plain_scan, plain_attn
+    want = {"rglru": PATHS[cfg.name]["rglru_scan"],
+            "attention": PATHS[cfg.name]["flash_attn_fwd"]}
+    check(seen == want, f"expected {want} layer calls, saw {seen}")
+    print(f"[parity] {cfg.name} every layer, kernel vs plain on the plain "
+          f"path's {cfg.compute_dtype} activations ({seen}): max|err| RG-LRU "
+          f"h_seq {worst['h_seq']:.3e} after the cast (tol "
+          f"{TOL[cfg.compute_dtype]:g} abs + rel), h_final "
+          f"{worst['h_final']:.3e} (tol {RGLRU_TOL:g}), attention output "
+          f"{worst['attention']:.3e} (tol {TOL[cfg.compute_dtype]:g})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -491,24 +682,40 @@ def main() -> int:
         for ln in ptxas_summary(log):
             print(f"[build] {name}: {ln}")
 
-    err = kernel_vs_plain(device)
+    errs = kernel_vs_plain(device)
     ssd_err = ssd_kernel_vs_plain(device)
-    timing = kernel_timing(device)
+    rglru_err = rglru_kernel_vs_plain(device)
+    timings = {shape: kernel_timing(device, shape)
+               for shape in (SERVE_SHAPE, RG_SERVE_SHAPE)}
     ssd_time = ssd_timing(device)
-    launches = serve_and_check(device, "qwen3-0.6b", "flash_attn_fwd")
-    ssd_launches = serve_and_check(device, "mamba2-780m", "ssd_chunk")
+    rglru_time = rglru_timing(device)
+    launches = {arch: serve_and_check(device, arch) for arch in PATHS}
 
+    flash_shapes = [
+        {"shape": list(shape), "path": arch,
+         "launches": launches[arch].get("flash_attn_fwd", 0),
+         "max_abs_err": errs[shape], **timings[shape]}
+        for shape, arch in ((SERVE_SHAPE, "qwen3-0.6b"),
+                            (RG_SERVE_SHAPE, "recurrentgemma-2b"))]
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attn_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
-        "launches": launches.get("flash_attn_fwd", 0), "max_abs_err": err,
-        **timing}, {
+        # over both paths that run it; times at qwen3-0.6b's shape, each
+        # serving shape's own under "shapes"
+        "launches": sum(n.get("flash_attn_fwd", 0) for n in launches.values()),
+        "max_abs_err": max(errs.values()), **timings[SERVE_SHAPE],
+        "shapes": flash_shapes}, {
         "name": "ssd_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:48",
-        "launches": ssd_launches.get("ssd_chunk", 0), "max_abs_err": ssd_err,
-        **ssd_time}]}))
+        "launches": launches["mamba2-780m"].get("ssd_chunk", 0),
+        "max_abs_err": ssd_err, **ssd_time}, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:41",
+        "launches": launches["recurrentgemma-2b"].get("rglru_scan", 0),
+        "max_abs_err": rglru_err, **rglru_time}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": 1}}))  # the smoke drives cuda:0 alone

@@ -15,21 +15,29 @@
 // so rows that see no key in a tile are untouched by it, and a ragged tail
 // (S not a multiple of the tile) is masked like any other key: any S >= 1.
 //
-// What bounds it on the H100.  At the serving shape (B=4, S=2048, H=16, KH=8,
-// hd=64, bf16, causal) the work is about 34 GFLOP against about 50 MB of
-// q, k, v and o: the least time is the tensor cores' (about 35 us at
-// 989 TFLOP/s), not memory.  This first version does both products on the
+// What bounds it on the H100.  At qwen3-0.6b's serving shape (B=4, S=2048,
+// H=16, KH=8, hd=64, bf16, causal) the work is about 34 GFLOP against about
+// 50 MB of q, k, v and o: the least time is the tensor cores' (about 35 us at
+// 989 TFLOP/s), not memory.  At recurrentgemma-2b's (B=4, S=2048, H=10,
+// KH=1, hd=256, window 2048, bf16, causal) it is 85.9 GFLOP, 0.0869 ms at
+// 989 TFLOP/s, against 92.3 MB of q, k, v and o (0.028 ms at 3.35 TB/s):
+// bound by operations too.  This first version does both products on the
 // CUDA cores in f32, so it is bound by FMA issue and by shared-memory reads,
 // far above that bound; wgmma, TMA and warp specialisation are later work.
 // What the design does about the FMA/shared-memory limit:
-//   * one block per (batch * head, 64-row query tile); the most expensive
+//   * one block per (batch * head, query tile); the most expensive
 //     causal tiles are issued first so the tail of the grid is short;
-//   * four threads per query row, each owning a quarter of head_dim as float4
-//     chunks interleaved across the four lanes, so a K or V read from shared
-//     memory is one conflict-free 16-byte load broadcast to the warp's eight
-//     rows, and a score needs two shuffles to finish;
+//   * four threads per query row (64 rows a block), each owning a quarter of
+//     head_dim as float4 chunks interleaved across the four lanes, so a K or V
+//     read from shared memory is one conflict-free 16-byte load broadcast to
+//     the warp's eight rows, and a score needs two shuffles to finish;
+//   * at hd 256, sixteen threads per query row (16 rows a block), so a thread
+//     still owns 16 values of q and 16 of the accumulator, as at hd 64, and
+//     stays under 128 registers without spilling; a warp's K or V read is 16
+//     distinct float4s broadcast to its two rows, and a score takes four
+//     shuffles;
 //   * a K and a V tile of at most 4096 values each are staged in shared memory as f32
-//     once per block and shared by all 64 rows (and, through the GQA map, the
+//     once per block and shared by all its rows (and, through the GQA map, the
 //     same KV head serves H/KH query heads);
 //   * the KV loop bounds are computed per query tile from the causal and
 //     window masks, so fully masked KV tiles are neither loaded nor computed
@@ -40,9 +48,10 @@
 
 namespace {
 
-constexpr int BLOCK_Q = 64;  // query rows per block
-constexpr int LANES = 4;     // threads per query row
-constexpr int THREADS = BLOCK_Q * LANES;
+constexpr int THREADS = 256;  // threads per block
+// Threads per query row and query rows per block, by head_dim.
+template <int HD> __host__ __device__ constexpr int lanes() { return HD == 256 ? 16 : 4; }
+template <int HD> __host__ __device__ constexpr int block_q() { return THREADS / lanes<HD>(); }
 constexpr int CH = 16;       // keys per online-softmax update
 constexpr float NEG_INF = -1e30f;
 
@@ -67,6 +76,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       int S, int H, int KH, float scale, int causal, int window) {
+  constexpr int LANES = lanes<HD>();
+  constexpr int BLOCK_Q = block_q<HD>();
   constexpr int BK = HD > 64 ? 4096 / HD : 64;  // keys per shared-memory tile
   constexpr int C4 = HD / 4;      // float4 chunks per head_dim row
   constexpr int MY4 = C4 / LANES; // chunks owned by one thread
@@ -139,8 +150,9 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           part += qr[i].x * kk.x + qr[i].y * kk.y + qr[i].z * kk.z + qr[i].w * kk.w;
         }
         // all 32 lanes take part: rows past S compute on zeros and store nothing
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        part += __shfl_xor_sync(0xffffffffu, part, 2);
+#pragma unroll
+        for (int off = 1; off < LANES; off *= 2)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
         s[j] = key_visible(qpos, k0 + c0 + j, S, causal, window) ? part : NEG_INF;
         chunk_max = fmaxf(chunk_max, s[j]);
       }
@@ -179,22 +191,30 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T, int HD>
+int launch_hd(const T* q, const T* k, const T* v, T* o, int B, int S, int H, int KH,
+              float scale, int causal, int window, cudaStream_t stream) {
+  const dim3 grid(B * H, (S + block_q<HD>() - 1) / block_q<HD>());
+  flash_attn_fwd_kernel<T, HD><<<grid, THREADS, 0, stream>>>(q, k, v, o, S, H, KH, scale,
+                                                             causal, window);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KH, int hd, float scale, int causal, int window,
            cudaStream_t stream) {
-  const dim3 grid(B * H, (S + BLOCK_Q - 1) / BLOCK_Q);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(o);
   switch (hd) {
-    case 16: flash_attn_fwd_kernel<T, 16><<<grid, THREADS, 0, stream>>>(qt, kt, vt, ot, S, H, KH, scale, causal, window); break;
-    case 64: flash_attn_fwd_kernel<T, 64><<<grid, THREADS, 0, stream>>>(qt, kt, vt, ot, S, H, KH, scale, causal, window); break;
-    case 128: flash_attn_fwd_kernel<T, 128><<<grid, THREADS, 0, stream>>>(qt, kt, vt, ot, S, H, KH, scale, causal, window); break;
+    case 16: return launch_hd<T, 16>(qt, kt, vt, ot, B, S, H, KH, scale, causal, window, stream);
+    case 64: return launch_hd<T, 64>(qt, kt, vt, ot, B, S, H, KH, scale, causal, window, stream);
+    case 128: return launch_hd<T, 128>(qt, kt, vt, ot, B, S, H, KH, scale, causal, window, stream);
+    case 256: return launch_hd<T, 256>(qt, kt, vt, ot, B, S, H, KH, scale, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -16,10 +16,15 @@ from ..build import load
 from .ref import attention_ref
 
 NAME = "flash_attn_fwd"
-HEAD_DIMS = (16, 64, 128)  # 16 is the reduced configs', 64 qwen3-0.6b's
+# 16 is the reduced configs', 64 qwen3-0.6b's, 256 recurrentgemma-2b's
+HEAD_DIMS = (16, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BLOCK_Q = 64  # query rows per block, as in the .cu file
 _MAX_GRID_Y = 65535
+
+
+def _block_q(hd: int) -> int:
+    """Query rows per block, as in the .cu file."""
+    return 16 if hd == 256 else 64
 
 
 def _function():
@@ -52,7 +57,7 @@ def _check(q, k, v, window):
         raise ValueError("q, k, v must be contiguous")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
-    if -(-S // _BLOCK_Q) > _MAX_GRID_Y or B * H >= 2 ** 31:
+    if -(-S // _block_q(hd)) > _MAX_GRID_Y or B * H >= 2 ** 31:
         raise ValueError(f"S={S}, B*H={B * H} exceed the kernel's grid")
 
 

@@ -1,5 +1,6 @@
 """Dense transformer layers (the dense subset of ``repro/models/layers.py``):
-norms, RoPE, GQA self-attention (qk-norm, bias, KV cache), gated MLP.
+norms, RoPE, GQA self-attention (qk-norm, bias, KV cache), gated MLP, and
+the depthwise causal conv of the recurrent blocks.
 
 Layers are plain functions on tensors; ``p`` is a dict of parameter tensors.
 Without a device mesh there is nothing to constrain, so ``constrain`` has no
@@ -151,6 +152,19 @@ def attention_decode(p, x, cfg: ArchConfig, cache, pos: int, *,
                         q_positions=posv, k_positions=cache["pos"],
                         impl="reference")
     return _out_proj(p, o, x.dtype), cache
+
+
+# -------------------------------------------------------------------- conv
+def causal_conv(u, w, b):
+    """Depthwise causal conv over (B, S, C); w: (W, C); no activation.  The
+    reference's W-step shift-and-add, not ``F.conv1d`` (cuDNN, TF32 by
+    default)."""
+    W, S = w.shape[0], u.shape[1]
+    pad = F.pad(u, (0, 0, W - 1, 0))
+    y = torch.zeros_like(u)
+    for i in range(W):
+        y = y + pad[:, i:i + S] * w[i].to(u.dtype)
+    return y + b.to(u.dtype)
 
 
 # ---------------------------------------------------------------------- MLP

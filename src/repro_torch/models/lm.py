@@ -6,10 +6,11 @@ leading dimension; the reference's ``lax.scan`` over that dimension is a
 loop here.  Decode caches are stacked along the same dimension.
 
 Modes: "prefill" (full sequence, returns the cache) and "decode" (one token
-against the cache, updated in place).  Dense (attention) and Mamba2 (ssm)
-blocks are ported.  ``model_defs`` covers every architecture, so parameter
-counts hold for all of them; the blocks of the other families raise
-``NotImplementedError`` until their slice of the port.
+against the cache, updated in place).  Dense (attention), Mamba2 (ssm) and
+RG-LRU (rglru) blocks are ported, with the layers before and after the stack
+(``dec/pre{i}``, ``dec/tail{i}``).  ``model_defs`` covers every
+architecture, so parameter counts hold for all of them; the blocks of the
+other families raise ``NotImplementedError`` until their slice of the port.
 """
 from __future__ import annotations
 
@@ -25,12 +26,11 @@ from .layers import (attn_cache_defs, attn_defs, attention_decode,
 from .moe import moe_defs
 from .params import (ParamDef, count_params, flatten, init_tree, map_defs,
                      stack_defs, unflatten)
-from .rglru import rglru_defs
+from .rglru import rglru_block, rglru_cache_defs, rglru_defs
 from .ssm import ssm_block, ssm_cache_defs, ssm_defs
 
 # block kinds whose forward has not been ported, and the slice that brings it
 NOT_PORTED = {
-    "rglru": "slice 3 (recurrentgemma-2b with the rglru_scan kernel)",
     "moe": "a later slice (mixture of experts)",
     "xdense": "a later slice (encoder-decoder)",
 }
@@ -109,16 +109,24 @@ def model_defs(cfg: ArchConfig):
 def block_cache_defs(cfg: ArchConfig, kind: str, batch: int, ctx: int):
     if kind == "ssm":
         return ssm_cache_defs(cfg, batch)
+    if kind == "rglru":
+        return rglru_cache_defs(cfg, batch)
     return attn_cache_defs(cfg, batch, ctx)
 
 
 def cache_defs(cfg: ArchConfig, batch: int, ctx: int):
-    """Decode cache of the ported (uniform) stacks."""
+    """Decode cache: ``dec/pre{i}``, the stacked ``dec/stack/b{j}`` and
+    ``dec/tail{i}``, as in the reference."""
     _check_ported(cfg)
-    _, sb_kinds, n_super, _ = structure(cfg)
+    pre, sb_kinds, n_super, tail = structure(cfg)
+    dec = {f"pre{i}": block_cache_defs(cfg, k, batch, ctx)
+           for i, k in enumerate(pre)}
     sb = {f"b{j}": block_cache_defs(cfg, kind, batch, ctx)
           for j, kind in enumerate(sb_kinds)}
-    return {"dec": {"stack": stack_defs(sb, n_super)}}
+    dec["stack"] = stack_defs(sb, n_super)
+    for i, k in enumerate(tail):
+        dec[f"tail{i}"] = block_cache_defs(cfg, k, batch, ctx)
+    return {"dec": dec}
 
 
 def num_params(cfg: ArchConfig) -> int:
@@ -159,8 +167,8 @@ def init_cache(cfg: ArchConfig, batch: int, ctx: int, device):
 def block_apply(p, x, cfg: ArchConfig, kind: str, mode: str, cache, pos,
                 impl: str):
     """Returns (x, cache_out).  In prefill ``cache`` is the cache capacity
-    (which an ssm block does not need); in decode it is this layer's cache,
-    updated in place."""
+    (which a recurrent block does not need); in decode it is this layer's
+    cache, updated in place."""
     if kind in NOT_PORTED:
         raise NotImplementedError(f"{kind} blocks come with {NOT_PORTED[kind]}")
     if kind == "ssm":
@@ -168,6 +176,13 @@ def block_apply(p, x, cfg: ArchConfig, kind: str, mode: str, cache, pos,
                                  cfg, mode, cache if mode == "decode" else None,
                                  impl=impl)
         return x + h, cache_out
+    if kind == "rglru":
+        h, cache_out = rglru_block(p["rec"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+                                   cfg, mode, cache if mode == "decode" else None,
+                                   impl=impl)
+        x = x + h
+        x = x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+        return x, cache_out
     window = cfg.local_window if (kind == "attn" or cfg.attn_kind == "local") \
         else None
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
@@ -208,23 +223,37 @@ def forward(params, cfg: ArchConfig, tokens, *, mode: str, cache=None,
         raise ValueError(f"mode {mode!r}: the port serves (prefill, decode)")
     _check_ported(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
-    _, sb_kinds, n_super, _ = structure(cfg)
+    pre, sb_kinds, n_super, tail = structure(cfg)
     x = params["embed"][tokens].to(cdt)
     ctx = (cache_len or tokens.shape[1]) if mode == "prefill" else None
-    stack = params["dec"]["stack"]
-    layer_caches = []
+    dec_p = params["dec"]
+    dec_c = cache["dec"] if mode == "decode" else None
+    new_cache, layer_caches = {}, []
+
+    def cache_in(tree, name: str):
+        """This layer's cache in decode; the cache capacity in prefill."""
+        return tree[name] if mode == "decode" else ctx
+
+    for i, kind in enumerate(pre):
+        name = f"pre{i}"
+        x, new_cache[name] = block_apply(dec_p[name], x, cfg, kind, mode,
+                                         cache_in(dec_c, name), pos, impl)
     for i in range(n_super):
-        p_i = _layer(stack, i)
-        c_i = _layer(cache["dec"]["stack"], i) if mode == "decode" else None
+        p_i = _layer(dec_p["stack"], i)
+        c_i = _layer(dec_c["stack"], i) if mode == "decode" else None
         co = {}
         for j, kind in enumerate(sb_kinds):
             name = f"b{j}"
-            x, co[name] = block_apply(
-                p_i[name], x, cfg, kind, mode,
-                c_i[name] if mode == "decode" else ctx, pos, impl)
+            x, co[name] = block_apply(p_i[name], x, cfg, kind, mode,
+                                      cache_in(c_i, name), pos, impl)
         layer_caches.append(co)
-    if mode == "prefill":
-        cache = {"dec": {"stack": _stack(layer_caches)}}
+    for i, kind in enumerate(tail):
+        name = f"tail{i}"
+        x, new_cache[name] = block_apply(dec_p[name], x, cfg, kind, mode,
+                                         cache_in(dec_c, name), pos, impl)
+    if mode == "prefill":  # decode updated ``cache`` in place
+        new_cache["stack"] = _stack(layer_caches)
+        cache = {"dec": new_cache}
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, cache
 

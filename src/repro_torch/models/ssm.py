@@ -7,7 +7,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.ssd_scan.ops import ssd, ssd_decode_step
-from .layers import rmsnorm
+from .layers import causal_conv, rmsnorm
 from .params import ParamDef
 
 
@@ -49,14 +49,7 @@ def ssm_cache_defs(cfg: ArchConfig, batch: int):
 
 
 def _causal_conv(u, w, b):
-    """Depthwise causal conv over (B, S, C); w: (W, C).  The reference's
-    W-step shift-and-add, not ``F.conv1d`` (cuDNN, TF32 by default)."""
-    W, S = w.shape[0], u.shape[1]
-    pad = F.pad(u, (0, 0, W - 1, 0))
-    y = torch.zeros_like(u)
-    for i in range(W):
-        y = y + pad[:, i:i + S] * w[i].to(u.dtype)
-    return F.silu(y + b.to(u.dtype))
+    return F.silu(causal_conv(u, w, b))
 
 
 def _projections(p, x, cfg: ArchConfig):

@@ -8,8 +8,12 @@ installed:
 Tolerances: f32 2e-5 and bf16 2e-2 for the attention kernel
 (``tests/test_kernels.py``); 2e-4 for the SSD kernel in either input type
 (both sides compute in f32 from the same inputs and write f32: the f32 bound
-of ``tests/test_kernels.py``); 1e-4 for f32 model logits through two layers,
-where only the order of sums differs between the card and the CPU.
+of ``tests/test_kernels.py``); for the RG-LRU scan 1e-5 on its f32 outputs
+(the kernel takes the plain version's f32 products and sums in the same
+order with the same rounding, so they should agree exactly) and one bf16
+step, 8e-3, on h_seq from bf16 inputs; 1e-4 for f32 model logits through a
+few layers, where only the order of sums differs between the card and the
+CPU.
 """
 import numpy as np
 import pytest
@@ -19,6 +23,8 @@ from repro_torch.configs import ARCHS
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssd_scan.kernel import ssd_chunk
 from repro_torch.kernels.ssd_scan.ops import ssd
 from repro_torch.kernels.ssd_scan.ref import chunk_cumsum, ssd_chunk_ref
@@ -41,6 +47,11 @@ SHAPES = [  # (B, S, H, KH, hd, window, causal)
     (1, 300, 4, 2, 128, None, False),   # non-causal
     (2, 64, 4, 4, 16, None, True),      # the reduced configs' head_dim
     (1, 100, 2, 1, 16, 16, True),
+    (1, 128, 4, 1, 256, None, True),    # recurrentgemma-2b's head_dim
+    (1, 300, 10, 1, 256, 128, True),    # ragged, windowed
+    (1, 4096, 10, 1, 256, 2048, True),  # the window bites at its width
+    (2, 100, 4, 2, 256, None, False),   # non-causal
+    (1, 5, 2, 1, 256, None, True),
 ]
 
 
@@ -54,6 +65,15 @@ SSD_SHAPES = [  # (Bt, S, H, P, G, N, chunk, model A): tests/test_kernels.py's g
     (4, 2048, 48, 64, 1, 128, 256, True),
 ]
 SSD_TOL = dict(rtol=2e-4, atol=2e-4)
+RGLRU_SHAPES = [  # (B, S, R, h0, model a)
+    (1, 64, 64, True, False),           # tests/test_kernels.py's grid
+    (2, 128, 128, True, False),
+    (2, 96, 192, True, False),
+    (2, 300, 100, True, False),         # ragged S and R
+    (1, 37, 5, False, False),           # h0 None
+    (4, 2048, 2560, False, True),       # recurrentgemma-2b's serving shape
+]
+RGLRU_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture
@@ -133,9 +153,51 @@ def test_ssd_padded_through_the_kernel_on_card(cuda_device, dtype):
     np.testing.assert_allclose(_np(h), _np(h_ref), **SSD_TOL)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "smollm-135m", "mamba2-780m"])
+def _rglru_inputs(device, dtype, B, S, R, h0, model_a, seed):
+    """a in [0.5, 0.999) as tests/test_kernels.py draws it, or the model's
+    a = exp(-8 softplus(1) sigmoid(z)), about 3e-5 to 1, with its gated
+    u = sqrt(1 - a^2) N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)
+    if model_a:
+        a = np.exp(-8 * np.log1p(np.e) / (1 + np.exp(-rng.normal(size=(B, S, R)))))
+        u = np.sqrt(1 - a * a) * rng.normal(size=(B, S, R))
+    else:
+        a = rng.uniform(0.5, 0.999, size=(B, S, R))
+        u = rng.normal(size=(B, S, R))
+    return (f(a).to(dtype), f(u).to(dtype),
+            f(rng.normal(size=(B, R))) if h0 else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,R,h0,model_a", RGLRU_SHAPES)
+def test_rglru_kernel_vs_plain_on_card(cuda_device, B, S, R, h0, model_a, dtype):
+    a, u, h = _rglru_inputs(cuda_device, dtype, B, S, R, h0, model_a, seed=S + R)
+    before = LAUNCHES["rglru_scan"]
+    hs, h_final = rglru_scan(a, u, h)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rglru_scan"] == before + 1
+    hs_ref, final_ref = rglru_scan_ref(a, u, h)
+    assert hs.dtype == dtype and h_final.dtype == torch.float32
+    assert bool(torch.isfinite(hs).all()) and bool(torch.isfinite(h_final).all())
+    tol = RGLRU_TOL if dtype == torch.float32 else dict(rtol=8e-3, atol=8e-3)
+    np.testing.assert_allclose(_np(hs), _np(hs_ref), **tol)
+    np.testing.assert_allclose(_np(h_final), _np(final_ref), **RGLRU_TOL)
+
+
+# Kernel launches per prefill of each reduced config: one per attention or
+# SSM or RG-LRU layer of its kind.
+REDUCED_LAUNCHES = {
+    "qwen3-0.6b": {"flash_attn_fwd": 2},
+    "smollm-135m": {"flash_attn_fwd": 2},
+    "mamba2-780m": {"ssd_chunk": 2},
+    "recurrentgemma-2b": {"flash_attn_fwd": 1, "rglru_scan": 4},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(REDUCED_LAUNCHES))
 def test_reduced_model_on_card_matches_cpu(cuda_device, arch):
-    """Prefill (through the kernel of the arch's block) and 4 greedy decode
+    """Prefill (through the kernels of the arch's blocks) and 4 greedy decode
     steps on the card against the same weights on the CPU."""
     cfg = ARCHS[arch].reduced()
     cpu = init_params(cfg, torch.Generator().manual_seed(0))
@@ -145,12 +207,11 @@ def test_reduced_model_on_card_matches_cpu(cuda_device, arch):
         np.random.default_rng(5).integers(0, cfg.vocab, size=(B, S)))
     prefill = make_prefill_step(cfg, cache_len=S + new)
     decode = make_decode_step(cfg)
-    kernel = "ssd_chunk" if cfg.ssm else "flash_attn_fwd"
     with torch.inference_mode():
-        before = LAUNCHES[kernel]
+        LAUNCHES.clear()
         glog, gcache = prefill(gpu, {"tokens": prompts.to(cuda_device)})
         torch.cuda.synchronize()
-        assert LAUNCHES[kernel] == before + cfg.n_layers
+        assert dict(LAUNCHES) == REDUCED_LAUNCHES[arch]
         clog, ccache = prefill(cpu, {"tokens": prompts})
         np.testing.assert_allclose(_np(glog), _np(clog), rtol=1e-4, atol=1e-4)
         for i in range(new):

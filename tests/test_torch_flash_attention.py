@@ -29,6 +29,10 @@ GRID = [  # tests/test_kernels.py
     (2, 256, 4, 2, 64, 64),        # local window
     (1, 512, 2, 2, 64, 128),
 ]
+HD256 = [  # recurrentgemma-2b's head_dim, MQA, with and without a window
+    (1, 128, 4, 1, 256, None),
+    (1, 256, 10, 1, 256, 64),
+]
 RAGGED = [  # lengths and masks the Pallas kernel cannot take
     (2, 200, 4, 2, 64, None, True),     # ragged S
     (1, 1000, 4, 2, 64, 96, True),      # ragged S with a window, chunked path
@@ -61,6 +65,20 @@ def _np(x):
 def test_port_vs_jax_ref_and_pallas(B, S, H, KH, hd, window, name):
     (jq, jk, jv), (q, k, v) = _inputs(S + H, B, S, H, KH, hd, name)
     got = flash_attention(q, k, v, causal=True, window=window)
+    ref = jax_ref(jq, jk, jv, causal=True, window=window)
+    pal = flash_attention_pallas(jq, jk, jv, causal=True, window=window,
+                                 interpret=True)
+    np.testing.assert_allclose(_np(got), _np(ref), **_tol(name))
+    np.testing.assert_allclose(_np(got), _np(pal), **_tol(name))
+
+
+@pytest.mark.parametrize("name", sorted(DTYPES))
+@pytest.mark.parametrize("B,S,H,KH,hd,window", HD256)
+def test_head_dim_256_vs_jax_ref_and_pallas(B, S, H, KH, hd, window, name):
+    """The port's plain version (the wrapper on a CPU tensor) at head_dim
+    256, against the JAX package's oracle and its Pallas kernel."""
+    (jq, jk, jv), (q, k, v) = _inputs(S + hd, B, S, H, KH, hd, name)
+    got = flash_attention_fwd(q, k, v, causal=True, window=window)
     ref = jax_ref(jq, jk, jv, causal=True, window=window)
     pal = flash_attention_pallas(jq, jk, jv, causal=True, window=window,
                                  interpret=True)

@@ -1,5 +1,5 @@
-"""The port's models (``repro_torch.models``: dense and Mamba2) against the
-JAX package.
+"""The port's models (``repro_torch.models``: dense, Mamba2 and RG-LRU
+hybrid) against the JAX package.
 
 The same parameters (made by ``repro.models.lm.init_params`` and carried
 over with ``repro_torch.convert``) and the same numpy inputs go through both.
@@ -16,6 +16,7 @@ import torch
 
 from repro.configs import ARCHS as JAX_ARCHS
 from repro.models import layers as jl
+from repro.models import rglru as jrg
 from repro.models import ssm as jssm
 from repro.models.lm import init_cache as jax_init_cache
 from repro.models.lm import init_params as jax_init_params
@@ -26,8 +27,10 @@ from repro.train.checkpoint import _flatten as jax_flatten
 from repro_torch.configs import ARCHS
 from repro_torch.convert import module_from_tree, state_dict_from_tree
 from repro_torch.models import layers as tl
+from repro_torch.models import rglru as trg
 from repro_torch.models import ssm as tssm
 from repro_torch.models.lm import init_cache, init_params, num_params
+from repro_torch.models.params import flatten
 from repro_torch.models.steps import make_decode_step, make_prefill_step
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -39,9 +42,13 @@ CASES = {
     "mamba2-780m": {},
     # two SSM groups: B and C read by group, heads h // (H/G)
     "mamba2-780m-g2": {"ssm_groups": 2},
+    # (rglru, rglru, attn) stack plus two rglru tail layers; local window 8,
+    # MQA at head_dim 16
+    "recurrentgemma-2b": {},
 }
-DENSE = sorted(c for c in CASES if not c.startswith("mamba2"))
 SSM = sorted(c for c in CASES if c.startswith("mamba2"))
+RGLRU = ["recurrentgemma-2b"]
+DENSE = sorted(set(CASES) - set(SSM) - set(RGLRU))
 
 
 def _configs(case):
@@ -136,6 +143,36 @@ def test_ssm_block_prefill_and_decode(case):
         _close(tcache[key], jcache[key])
 
 
+@pytest.mark.parametrize("case", RGLRU)
+def test_rglru_block_prefill_and_decode(case):
+    """One RG-LRU block (layer 0 of the stacked b0) in prefill and in two
+    decode steps against its cache; then the tail layer's block."""
+    jcfg, tcfg, jparams, model = _pair(case)
+    S = 12
+    jx, tx = _x((2, S, tcfg.d_model))
+    for jp, tp in ((_layer0(jparams["dec"]["stack"]["b0"])["rec"],
+                    _block0(model)["rec"]),
+                   (jparams["dec"]["tail1"]["rec"],
+                    model.tree()["dec"]["tail1"]["rec"])):
+        ty, tcache = trg.rglru_block(tp, tx, tcfg, "prefill")
+        jy, jcache = jax.jit(jrg.rglru_block, static_argnums=(2, 3))(
+            jp, jx, jcfg, "prefill")
+        _close(ty, jy)
+        assert set(tcache) == set(jcache) == {"conv", "h"}
+        assert tcache["h"].dtype == torch.float32
+        for key in jcache:
+            _close(tcache[key], jcache[key])
+        for step in range(2):
+            jx1, tx1 = _x((2, 1, tcfg.d_model), seed=4 + step)
+            ty, tcache2 = trg.rglru_block(tp, tx1, tcfg, "decode", tcache)
+            jy, jcache = jax.jit(jrg.rglru_block, static_argnums=(2, 3))(
+                jp, jx1, jcfg, "decode", jcache)
+            assert tcache2 is tcache  # updated in place
+            _close(ty, jy)
+            for key in jcache:
+                _close(tcache[key], jcache[key])
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_prefill_then_greedy_decode(case):
     jcfg, tcfg, jparams, model = _pair(case)
@@ -150,11 +187,7 @@ def test_prefill_then_greedy_decode(case):
     with torch.inference_mode():
         tlog, tcache = t_prefill(model, {"tokens": torch.from_numpy(prompts)})
     _close(tlog, jlog)
-    keys = set(jcache["dec"]["stack"]["b0"])  # by block kind
-    assert keys == ({"conv", "state"} if case in SSM else {"k", "v", "pos"})
-    assert set(tcache["dec"]["stack"]["b0"]) == keys
-    for key in keys:
-        _close(tcache["dec"]["stack"]["b0"][key], jcache["dec"]["stack"]["b0"][key])
+    _close_caches(tcache, jcache, case)
 
     jtok = jnp.argmax(jlog[:, -1], axis=-1)[:, None]
     ttok = tlog[:, -1].argmax(dim=-1)[:, None]
@@ -167,11 +200,22 @@ def test_prefill_then_greedy_decode(case):
         _close(tlog, jlog)
         jtok = jnp.argmax(jlog[:, -1], axis=-1)[:, None]
         ttok = tlog[:, -1].argmax(dim=-1)[:, None]
-    for key in keys:
-        _close(tcache["dec"]["stack"]["b0"][key], jcache["dec"]["stack"]["b0"][key])
+    _close_caches(tcache, jcache, case)
 
 
-@pytest.mark.parametrize("case", SSM)
+def _close_caches(tcache, jcache, case):
+    """Every entry of the two caches (stacked blocks and tail layers), under
+    the reference's keys."""
+    tflat, jflat = flatten(tcache), jax_flatten(jcache)
+    assert set(tflat) == set(jflat)
+    kinds = {"conv", "state"} if case in SSM else \
+        {"conv", "h", "k", "v", "pos"} if case in RGLRU else {"k", "v", "pos"}
+    assert {key.rsplit("/", 1)[1] for key in tflat} == kinds
+    for key in jflat:
+        _close(tflat[key], jflat[key])
+
+
+@pytest.mark.parametrize("case", SSM + RGLRU)
 def test_short_prompt_prefills_and_decodes(case):
     """A 2-token prompt, shorter than the conv window's W - 1 = 3: the port
     pads the conv cache with zeros (the JAX package's next decode step fails
@@ -181,8 +225,11 @@ def test_short_prompt_prefills_and_decodes(case):
     tokens = torch.from_numpy(
         np.random.default_rng(7).integers(0, tcfg.vocab, size=(2, 3)))
     with torch.inference_mode():
-        _, cache = make_prefill_step(tcfg)(model, {"tokens": tokens[:, :2]})
-        assert cache["dec"]["stack"]["b0"]["conv"].shape[2] == tcfg.conv_width - 1
+        _, cache = make_prefill_step(tcfg, cache_len=3)(
+            model, {"tokens": tokens[:, :2]})
+        convs = {k: t for k, t in flatten(cache).items() if k.endswith("conv")}
+        assert convs and all(t.shape[-2] == tcfg.conv_width - 1
+                              for t in convs.values())
         got, _ = make_decode_step(tcfg)(model, cache, tokens[:, 2:], 2)
         want, _ = make_prefill_step(tcfg)(model, {"tokens": tokens})
     _close(got, want[:, -1:].numpy())
@@ -238,8 +285,8 @@ def test_random_init_is_seeded_and_shaped():
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-@pytest.mark.parametrize("name", ["deepseek-moe-16b", "recurrentgemma-2b",
-                                  "granite-moe-3b-a800m", "whisper-medium"])
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "granite-moe-3b-a800m",
+                                  "whisper-medium"])
 def test_unported_families_raise(name):
     cfg = ARCHS[name].reduced()
     model = init_params(cfg, torch.Generator().manual_seed(0))
@@ -251,8 +298,7 @@ def test_unported_families_raise(name):
 def test_init_cache_matches_reference(case):
     jcfg, tcfg = _configs(case)
     ref = jax_flatten(jax_init_cache(jcfg, 2, 20))
-    got = init_cache(tcfg, 2, 20, "cpu")
-    flat = {f"dec/stack/b0/{k}": v for k, v in got["dec"]["stack"]["b0"].items()}
+    flat = flatten(init_cache(tcfg, 2, 20, "cpu"))
     assert set(flat) == set(ref)
     for key, t in flat.items():
         assert tuple(t.shape) == ref[key].shape
