@@ -7,12 +7,14 @@ Phases; any that fails ends the run with a non-zero exit:
   1. the card (``nvidia-smi`` name and power limit) and the build of every
      CUDA kernel from the checkout's sources (one nvcc per source, all
      started together), with nvcc's register, shared-memory and spill report;
+     the run fails if a bf16 (tensor-core) flash instantiation spills;
   2. every kernel against its plain PyTorch version on the card:
      - flash_attn_fwd over the grid of ``tests/test_kernels.py`` plus a
        ragged length, a non-causal case, head_dim 256 (small, ragged and
-       windowed, and with a window that bites) and both serving shapes
-       (qwen3-0.6b's and recurrentgemma-2b's), each in f32 and bf16
-       (tolerances: f32 2e-5, bf16 8e-3, abs + rel);
+       windowed, and with a window that bites), cases that straddle the
+       tensor-core kernel's tiles, and both serving shapes (qwen3-0.6b's and
+       recurrentgemma-2b's), each in f32 (the CUDA-core kernel) and bf16
+       (the tensor-core kernel); tolerances f32 2e-5, bf16 8e-3, abs + rel;
      - ssd_chunk against ``ssd_chunk_ref`` over the grid of
        ``tests/test_kernels.py`` and mamba2-780m's serving shape (with that
        test's A and with the model's A), x, B and C in f32 and in bf16, both
@@ -25,6 +27,8 @@ Phases; any that fails ends the run with a non-zero exit:
   3. each kernel's time at its serving shape beside its plain version, one
      PyTorch library call computing the same function where there is one (a
      yardstick the port never calls) and the least time the card could take;
+     for flash_attn_fwd also the registers, local and shared bytes of the
+     bf16 kernel;
   4. the main paths, each with the launch counts set to 0 just before it and
      read just after: ``repro_torch.launch.serve`` serves 8 requests of
      full-width qwen3-0.6b, then of full-width mamba2-780m, then of
@@ -55,13 +59,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12    # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bytes/s
-# Kernel against plain, abs + rel.  f32: tests/test_kernels.py's 2e-5.  bf16:
-# both compute in f32 from the same bf16 inputs and round the output to bf16
-# once, so they differ by at most one bf16 step of the output, at most
-# 2**-7 |o| < 8e-3 |o| (tests/test_kernels.py allows 2e-2).
+# Kernel against plain, abs + rel.  f32: tests/test_kernels.py's 2e-5 (the
+# f32 kernel runs on the CUDA cores and rounds nothing but its f32 sums).
+# bf16: the plain version computes in f32 from the same bf16 inputs and
+# rounds the output to bf16 once: one bf16 step of the output, at most
+# 2**-7 |o|.  The tensor-core kernel also rounds P to bf16 as the A operand
+# of P.V, as every tensor-core flash kernel does: a relative 2**-8 on each
+# weight, which moves o by at most 2**-8 sum_j p_j |v_j| / l, in errors of
+# random sign that mostly cancel over a row's keys.  8e-3 abs + rel covers
+# both at inputs of unit scale (tests/test_kernels.py allows 2e-2).
 TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 # (B, S, H, KH, hd, window, causal): tests/test_kernels.py's grid, a ragged
-# length, a non-causal case; the serving shape is added last, in both types.
+# length, a non-causal case; then cases that straddle the tensor-core
+# kernel's tiles (bf16: 128 query rows and 64 keys a tile at hd 64 and 256,
+# 64 and 64 at hd 16 and 128): S = 1, 15, 63, 65, 127, 129 and
+# 2049, window 1, windows whose first key falls inside a key tile (40, 300),
+# KH = H and KH = 1; the serving shape is added last, in both types.
 GRID = [
     (1, 128, 2, 2, 64, None, True),
     (2, 256, 4, 2, 64, None, True),
@@ -70,11 +83,30 @@ GRID = [
     (1, 512, 2, 2, 64, 128, True),
     (2, 1000, 4, 2, 64, None, True),
     (1, 300, 4, 2, 128, None, False),
+    (1, 1, 2, 1, 64, None, True),
+    (2, 15, 4, 4, 64, None, True),
+    (1, 63, 4, 1, 64, None, True),
+    (1, 65, 2, 2, 64, None, False),
+    (1, 127, 4, 2, 64, 1, True),
+    (2, 129, 4, 2, 64, 40, True),
+    (1, 2049, 4, 2, 64, None, True),
+    (1, 2049, 2, 1, 64, 300, True),
+    (2, 129, 4, 4, 16, None, True),
+    (1, 65, 2, 1, 16, 1, True),
+    (1, 129, 4, 2, 128, 40, True),
+    (1, 63, 2, 2, 128, None, False),
 ]
 GRID_HD256 = [  # recurrentgemma-2b's head_dim: small, ragged + windowed, biting window
     (1, 128, 4, 1, 256, None, True),
     (1, 300, 10, 1, 256, 128, True),
     (1, 4096, 10, 1, 256, 2048, True),
+    (1, 1, 2, 1, 256, None, True),
+    (1, 15, 2, 2, 256, None, True),
+    (1, 63, 10, 1, 256, None, True),
+    (1, 65, 4, 1, 256, 1, True),
+    (1, 127, 4, 2, 256, 40, True),
+    (1, 129, 2, 1, 256, None, False),
+    (1, 2049, 10, 1, 256, 2048, True),
 ]
 SERVE_SHAPE = (4, 2048, 16, 8, 64, None, True)  # qwen3-0.6b prefill attention
 RG_SERVE_SHAPE = (4, 2048, 10, 1, 256, 2048, True)  # recurrentgemma-2b's
@@ -96,8 +128,9 @@ def serve_argv(arch: str) -> list:
 
 # Kernel-vs-plain logits of one full-width qwen3-0.6b prefill: both paths
 # keep f32 softmax statistics and round each attention output to bf16, so they
-# differ where a sum taken in another order rounds to the neighbouring bf16
-# value (a relative step of 2**-8).  Such steps enter the residual stream in
+# differ where a sum taken in another order, or the kernel's bf16 P, moves the
+# f32 output across a rounding boundary to the neighbouring bf16 value (a
+# relative step of 2**-8).  Such steps enter the residual stream in
 # each of 28 layers; with logits of unit scale (random init) 28 * 2**-8 ~ 0.11
 # bounds their sum when every layer adds one in the same direction.
 LOGIT_ATOL = 0.11
@@ -178,13 +211,29 @@ def ptxas_summary(log: str) -> list:
     lines, entry, spills = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            entry = ln.split("'")[1]
+            entry, spills = ln.split("'")[1], ""
         elif "spill stores" in ln and entry:
             spills = ln.strip()
         elif "Used" in ln and entry:
             lines.append(f"{entry}: {ln.split(':', 1)[1].strip()}; {spills}")
             entry = None
     return lines
+
+
+def spill_gate(summary: list) -> None:
+    """Fails the run unless every bf16 (tensor-core) flash instantiation, one
+    per head_dim the wrapper takes, reports 0 bytes of spill stores and
+    loads in ptxas's report."""
+    import re
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+    tc = [ln for ln in summary if "flash_attn_fwd_tc_kernel" in ln]
+    check(len(tc) == len(HEAD_DIMS),
+          f"expected {len(HEAD_DIMS)} tensor-core flash instantiations in "
+          f"ptxas's report, found {len(tc)}")
+    for ln in tc:
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        check(found is not None and found.groups() == ("0", "0"),
+              f"a bf16 flash instantiation spills or was not reported: {ln}")
 
 
 def qkv(shape, dtype, device, seed):
@@ -368,10 +417,12 @@ def kernel_timing(device, shape) -> dict:
     mask computes the same function)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import (attributes,
+                                                            flash_attention_fwd)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     B, S, H, KH, hd, window, causal = shape
     check(causal and (window is None or window >= S), "SDPA's mask differs")
+    attrs = attributes(hd, torch.bfloat16)
     q, k, v = qkv(shape, torch.bfloat16, device, seed=99)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     out = {
@@ -384,8 +435,9 @@ def kernel_timing(device, shape) -> dict:
     }
     out["bound_ms"], out["bound_by"] = attention_bound_ms(shape, 2,
                                                           PEAK_BF16_FLOPS)
+    out.update(attrs)
     print(f"[timing] flash_attn_fwd at B={B} S={S} H={H} KH={KH} hd={hd} "
-          f"window={window} bf16 causal: "
+          f"window={window} bf16 causal (tensor cores): "
           + ", ".join(f"{k} {v}" for k, v in out.items()))
     return out
 
@@ -681,6 +733,7 @@ def main() -> int:
     for name, log in logs.items():
         for ln in ptxas_summary(log):
             print(f"[build] {name}: {ln}")
+    spill_gate(ptxas_summary(logs["flash_attn_fwd"]))
 
     errs = kernel_vs_plain(device)
     ssd_err = ssd_kernel_vs_plain(device)
@@ -701,6 +754,9 @@ def main() -> int:
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attn_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
+        "design": "bf16: tensor cores (mma.sync m16n8k16 bf16 -> f32, ldmatrix "
+                  "from swizzled shared memory, two cp.async K/V stages, P in "
+                  "registers); f32: CUDA cores",
         # over both paths that run it; times at qwen3-0.6b's shape, each
         # serving shape's own under "shapes"
         "launches": sum(n.get("flash_attn_fwd", 0) for n in launches.values()),

@@ -69,18 +69,25 @@ def _build(name: str, src: Path, out: Path) -> str:
         os.unlink(tmp)
         raise BuildError(f"nvcc failed on {name} (exit {proc.returncode}):\n"
                          f"{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return proc.stdout
+
+
+def _saved_log(out: Path) -> str:
+    log = out.with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build_all() -> Dict[str, str]:
     """Build every kernel not yet built, one ``nvcc`` per source, all at once.
 
     Returns kernel name -> nvcc's output (``-Xptxas -v``: registers, shared
-    memory and spills per kernel); empty for a kernel already built."""
+    memory and spills per kernel), kept beside the library from the build
+    that made it."""
     jobs = {name: (src, _library_path(src)) for name, src in sources().items()}
     todo = {name: job for name, job in jobs.items() if not job[1].exists()}
-    logs = dict.fromkeys(jobs, "")
+    logs = {name: _saved_log(out) for name, (_, out) in jobs.items()}
     with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
         futures = {name: pool.submit(_build, name, *job)
                    for name, job in todo.items()}

@@ -1,5 +1,6 @@
 """ctypes wrapper of the CUDA flash-attention forward kernel
-(``csrc/flash_attn_fwd.cu``), the port of ``flash_attention_pallas``.
+(``csrc/flash_attn_fwd.cu``), the port of ``flash_attention_pallas``: bf16
+inputs run the tensor-core kernel, f32 inputs the CUDA-core kernel.
 
 On a CPU tensor the wrapper computes the kernel's plain version
 (``ref.attention_ref``); on a CUDA tensor it launches the kernel or raises.
@@ -22,8 +23,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 
 
-def _block_q(hd: int) -> int:
-    """Query rows per block, as in the .cu file."""
+def _block_q(hd: int, dtype: torch.dtype) -> int:
+    """Query rows per block, as in the .cu file: the tensor-core kernel's
+    (bf16) or the CUDA-core kernel's (f32)."""
+    if dtype == torch.bfloat16:
+        return 128 if hd in (64, 256) else 64
     return 16 if hd == 256 else 64
 
 
@@ -33,6 +37,21 @@ def _function():
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def attributes(hd: int, dtype: torch.dtype) -> dict:
+    """Registers a thread, local bytes a thread (spills and stack) and shared
+    bytes a block of the compiled kernel that (hd, dtype) launches; builds
+    it first if need be."""
+    fn = load(NAME).flash_attn_fwd_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(hd, _DTYPES[dtype], *(ctypes.byref(x) for x in out))
+    if err:
+        raise RuntimeError(f"{NAME} attributes failed with CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes"),
+                    (x.value for x in out)))
 
 
 def _check(q, k, v, window):
@@ -50,6 +69,8 @@ def _check(q, k, v, window):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the kernel takes "
                         "float32 or bfloat16, the same for q, k and v")
+    if -(-S // _block_q(hd, q.dtype)) > _MAX_GRID_Y or B * H >= 2 ** 31:
+        raise ValueError(f"S={S}, B*H={B * H} exceed the kernel's grid")
     if not (q.device == k.device == v.device) or q.device.type != "cuda":
         raise ValueError(f"q, k, v must lie on one CUDA device: {q.device}, "
                          f"{k.device}, {v.device}")
@@ -57,8 +78,6 @@ def _check(q, k, v, window):
         raise ValueError("q, k, v must be contiguous")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
-    if -(-S // _block_q(hd)) > _MAX_GRID_Y or B * H >= 2 ** 31:
-        raise ValueError(f"S={S}, B*H={B * H} exceed the kernel's grid")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs import ARCHS
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, attributes
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
@@ -52,6 +53,28 @@ SHAPES = [  # (B, S, H, KH, hd, window, causal)
     (1, 4096, 10, 1, 256, 2048, True),  # the window bites at its width
     (2, 100, 4, 2, 256, None, False),   # non-causal
     (1, 5, 2, 1, 256, None, True),
+    # the bf16 kernel's tile edges (query x key tiles: 128 x 64 at hd 64
+    # and 256, 64 x 64 at hd 16 and 128): S = 1, 15, 63, 65, 127,
+    # 129, 2049; window 1; windows starting inside a key tile; KH = H, KH = 1
+    (1, 1, 2, 1, 64, None, True),
+    (2, 15, 4, 4, 64, None, True),
+    (1, 63, 4, 1, 64, None, True),
+    (1, 65, 2, 2, 64, None, False),
+    (1, 127, 4, 2, 64, 1, True),
+    (2, 129, 4, 2, 64, 40, True),
+    (1, 2049, 4, 2, 64, None, True),
+    (1, 2049, 2, 1, 64, 300, True),
+    (2, 129, 4, 4, 16, None, True),
+    (1, 65, 2, 1, 16, 1, True),
+    (1, 129, 4, 2, 128, 40, True),
+    (1, 63, 2, 2, 128, None, False),
+    (1, 1, 2, 1, 256, None, True),
+    (1, 15, 2, 2, 256, None, True),
+    (1, 63, 10, 1, 256, None, True),
+    (1, 65, 4, 1, 256, 1, True),
+    (1, 127, 4, 2, 256, 40, True),
+    (1, 129, 2, 1, 256, None, False),
+    (1, 2049, 10, 1, 256, 2048, True),
 ]
 
 
@@ -103,6 +126,14 @@ def test_kernel_vs_plain_on_card(cuda_device, B, S, H, KH, hd, window, causal,
     assert got.dtype == dtype and got.shape == q.shape
     ref = attention_ref(q, k, v, causal=causal, window=window)
     np.testing.assert_allclose(_np(got), _np(ref), **TOL[dtype])
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_bf16_kernel_uses_no_local_memory(cuda_device, hd):
+    """The tensor-core kernel at every head_dim neither spills nor keeps a
+    stack: its compiled local memory is 0 bytes."""
+    attrs = attributes(hd, torch.bfloat16)
+    assert attrs["local_bytes"] == 0, attrs
 
 
 def _ssd_inputs(device, dtype, Bt, S, H, P, G, N, model_a, seed):

@@ -39,6 +39,26 @@ RAGGED = [  # lengths and masks the Pallas kernel cannot take
     (1, 300, 4, 2, 128, None, False),   # non-causal
     (1, 5, 2, 1, 64, None, True),       # S below one block
 ]
+# Lengths and windows that straddle the bf16 kernel's tiles (128 query rows
+# and 64 keys at hd 64 and 256, 64 and 64 at hd 16 and 128):
+# S one row, one short of and one past a tile; window 1 and windows whose
+# first key falls inside a key tile; KH = H and KH = 1.
+TILE_EDGES = [
+    (1, 1, 2, 1, 64, None, True),
+    (2, 15, 4, 4, 64, None, True),
+    (1, 63, 4, 1, 64, None, True),
+    (1, 65, 2, 2, 64, None, False),
+    (1, 127, 4, 2, 64, 1, True),
+    (2, 129, 4, 2, 64, 40, True),
+    (1, 2049, 2, 1, 16, 300, True),
+    (2, 129, 4, 4, 16, None, True),
+    (1, 65, 2, 1, 16, 1, True),
+    (1, 129, 4, 2, 128, 40, True),
+    (1, 63, 2, 2, 128, None, False),
+    (1, 65, 4, 1, 256, 1, True),
+    (1, 127, 4, 2, 256, 40, True),
+    (1, 129, 2, 1, 256, None, False),
+]
 
 
 def _tol(name):
@@ -91,6 +111,18 @@ def test_head_dim_256_vs_jax_ref_and_pallas(B, S, H, KH, hd, window, name):
 def test_port_ragged_and_noncausal_vs_jax_ref(B, S, H, KH, hd, window, causal,
                                               name):
     (jq, jk, jv), (q, k, v) = _inputs(S, B, S, H, KH, hd, name)
+    ref = jax_ref(jq, jk, jv, causal=causal, window=window)
+    for got in (flash_attention(q, k, v, causal=causal, window=window),
+                flash_attention_fwd(q, k, v, causal=causal, window=window)):
+        np.testing.assert_allclose(_np(got), _np(ref), **_tol(name))
+
+
+@pytest.mark.parametrize("name", sorted(DTYPES))
+@pytest.mark.parametrize("B,S,H,KH,hd,window,causal", TILE_EDGES)
+def test_port_at_tile_edges_vs_jax_ref(B, S, H, KH, hd, window, causal, name):
+    """The port's plain path (the dispatch and the wrapper on a CPU tensor)
+    against the JAX package's oracle where the bf16 kernel's tiles end."""
+    (jq, jk, jv), (q, k, v) = _inputs(S + hd, B, S, H, KH, hd, name)
     ref = jax_ref(jq, jk, jv, causal=causal, window=window)
     for got in (flash_attention(q, k, v, causal=causal, window=window),
                 flash_attention_fwd(q, k, v, causal=causal, window=window)):
@@ -150,4 +182,18 @@ def test_wrapper_checks_before_launching(shapes, dtype, error):
     before = LAUNCHES["flash_attn_fwd"]
     with pytest.raises((ValueError, TypeError), match=error):
         flash_attention_fwd(q, k, k)
+    assert LAUNCHES["flash_attn_fwd"] == before
+
+
+@pytest.mark.parametrize("dtype,hd,block_q", [
+    (torch.float32, 64, 64), (torch.float32, 256, 16),
+    (torch.bfloat16, 64, 128), (torch.bfloat16, 256, 128),
+])
+def test_wrapper_checks_the_grid_of_each_kernel(dtype, hd, block_q):
+    """The query tile, and so the longest S the grid takes, is the f32
+    kernel's or the bf16 kernel's; one row more than 65535 tiles raises."""
+    q = torch.empty((1, 65535 * block_q + 1, 1, hd), dtype=dtype, device="meta")
+    before = LAUNCHES["flash_attn_fwd"]
+    with pytest.raises(ValueError, match="exceed the kernel's grid"):
+        flash_attention_fwd(q, q, q)
     assert LAUNCHES["flash_attn_fwd"] == before
