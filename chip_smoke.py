@@ -7,7 +7,7 @@ Phases; any that fails ends the run with a non-zero exit:
   1. the card (``nvidia-smi`` name and power limit) and the build of every
      CUDA kernel from the checkout's sources (one nvcc per source, all
      started together), with nvcc's register, shared-memory and spill report;
-     the run fails if a bf16 (tensor-core) flash instantiation spills;
+     the run fails if a bf16 (tensor-core) flash or SSD instantiation spills;
   2. every kernel against its plain PyTorch version on the card:
      - flash_attn_fwd over the grid of ``tests/test_kernels.py`` plus a
        ragged length, a non-causal case, head_dim 256 (small, ragged and
@@ -15,11 +15,19 @@ Phases; any that fails ends the run with a non-zero exit:
        tensor-core kernel's tiles, and both serving shapes (qwen3-0.6b's and
        recurrentgemma-2b's), each in f32 (the CUDA-core kernel) and bf16
        (the tensor-core kernel); tolerances f32 2e-5, bf16 8e-3, abs + rel;
-     - ssd_chunk against ``ssd_chunk_ref`` over the grid of
-       ``tests/test_kernels.py`` and mamba2-780m's serving shape (with that
-       test's A and with the model's A), x, B and C in f32 and in bf16, both
-       outputs (f32 on both sides: 2e-4 abs + rel); and the padded grid case
-       through the whole ``ops.ssd`` against ``ssd_chunked_ref``;
+     - ssd_chunk (the f32 path's CUDA-core kernel) against ``ssd_chunk_ref``
+       over the grid of ``tests/test_kernels.py`` and mamba2-780m's serving
+       shape (with that test's A and with the model's A), x, B and C in f32
+       and in bf16, both outputs (f32 on both sides: 2e-4 abs + rel); and the
+       padded grid case through the whole ``ops.ssd`` against
+       ``ssd_chunked_ref``;
+     - the bf16 path's kernels, ssd_chunk_state, ssd_state_pass and
+       ssd_chunk_scan, each against its plain version (the cumsum to the
+       bit; chunk_in, h_ins and h_final 2e-4; y one bf16 step, 8e-3), and
+       the whole bf16 ``ops.ssd`` against ``ssd_chunked_ref`` (y 8e-3,
+       h_final 2e-4), over that grid, the serving shape with both A, chunk 8
+       (P 16, N 16), G = 2 and 3, chunks that are not a multiple of 16 (24,
+       5), with and without h0;
      - rglru_scan against ``rglru_scan_ref`` over the grid of
        ``tests/test_kernels.py``, a ragged length, h0 None and
        recurrentgemma-2b's serving shape with the model's kind of decay, a
@@ -28,7 +36,9 @@ Phases; any that fails ends the run with a non-zero exit:
      PyTorch library call computing the same function where there is one (a
      yardstick the port never calls) and the least time the card could take;
      for flash_attn_fwd also the registers, local and shared bytes of the
-     bf16 kernel;
+     bf16 kernel; for the bf16 SSD path each kernel, the whole ``ops.ssd``
+     beside the path it replaced (ssd_chunk and its PyTorch glue) and
+     ``ssd_chunked_ref``, with the whole function's bound;
   4. the main paths, each with the launch counts set to 0 just before it and
      read just after: ``repro_torch.launch.serve`` serves 8 requests of
      full-width qwen3-0.6b, then of full-width mamba2-780m, then of
@@ -116,7 +126,8 @@ BATCH, PROMPT = 4, 2048  # the traffic of every served model
 # none of any other kernel.
 PATHS = {
     "qwen3-0.6b": {"flash_attn_fwd": 28},
-    "mamba2-780m": {"ssd_chunk": 48},
+    "mamba2-780m": {"ssd_chunk_state": 48, "ssd_state_pass": 48,
+                    "ssd_chunk_scan": 48},
     "recurrentgemma-2b": {"flash_attn_fwd": 8, "rglru_scan": 18},
 }
 
@@ -172,6 +183,17 @@ SSD_GRID = [
 ]
 SSD_SERVE = (4, 2048, 48, 64, 1, 128, 256)  # mamba2-780m prefill SSD
 SSD_PADDED = (1, 80, 2, 16, 1, 16, 32, False)
+# The bf16 path (ssd_chunk_state, ssd_state_pass, ssd_chunk_scan) also at the
+# reduced configs' (P, N, chunk) = (16, 16, 8), G = 2 and 3, chunks that are
+# not a multiple of the kernels' 16-row tiles (24, 5), and one 512-row case of
+# mamba2-780m's widths; each case with and without h0.
+SSD_BF16_GRID = SSD_GRID + [
+    (2, 48, 8, 16, 1, 16, 8, False),
+    (1, 96, 4, 16, 2, 32, 24, True),
+    (2, 64, 6, 32, 3, 16, 16, True),
+    (1, 40, 2, 16, 1, 16, 5, True),
+    (1, 512, 4, 64, 1, 128, 256, True),
+]
 # rglru_scan against rglru_scan_ref: the kernel takes the oracle's f32
 # product and sum in the same order with the same rounding (no FMA), so the
 # f32 outputs should agree exactly; 1e-5 abs + rel.  h_seq from bf16 inputs
@@ -220,20 +242,28 @@ def ptxas_summary(log: str) -> list:
     return lines
 
 
-def spill_gate(summary: list) -> None:
-    """Fails the run unless every bf16 (tensor-core) flash instantiation, one
-    per head_dim the wrapper takes, reports 0 bytes of spill stores and
-    loads in ptxas's report."""
+def spill_gate(logs: dict) -> None:
+    """Fails the run unless every bf16 (tensor-core) instantiation reports 0
+    bytes of spill stores and loads in ptxas's report: the flash kernel's,
+    one per head_dim its wrapper takes, and the SSD path's, ssd_chunk_state
+    and ssd_chunk_scan at each (P, N) their wrappers take and
+    ssd_state_pass."""
     import re
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
-    tc = [ln for ln in summary if "flash_attn_fwd_tc_kernel" in ln]
-    check(len(tc) == len(HEAD_DIMS),
-          f"expected {len(HEAD_DIMS)} tensor-core flash instantiations in "
-          f"ptxas's report, found {len(tc)}")
-    for ln in tc:
-        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        check(found is not None and found.groups() == ("0", "0"),
-              f"a bf16 flash instantiation spills or was not reported: {ln}")
+    from repro_torch.kernels.ssd_scan.kernel import PN_PAIRS
+    wanted = (("flash_attn_fwd", "flash_attn_fwd_tc_kernel", len(HEAD_DIMS)),
+              ("ssd_bf16", "ssd_chunk_state_kernel", len(PN_PAIRS)),
+              ("ssd_bf16", "ssd_chunk_scan_kernel", len(PN_PAIRS)),
+              ("ssd_bf16", "ssd_state_pass_kernel", 1))
+    for source, kernel, count in wanted:
+        tc = [ln for ln in ptxas_summary(logs[source]) if kernel in ln]
+        check(len(tc) == count, f"expected {count} {kernel} instantiations in "
+              f"ptxas's report, found {len(tc)}")
+        for ln in tc:
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                              ln)
+            check(found is not None and found.groups() == ("0", "0"),
+                  f"a bf16 instantiation spills or was not reported: {ln}")
 
 
 def qkv(shape, dtype, device, seed):
@@ -344,6 +374,83 @@ def ssd_kernel_vs_plain(device) -> float:
     return err
 
 
+def ssd_bf16_vs_plain(device) -> dict:
+    """Phase 2 for the bf16 path: each kernel against its plain version,
+    and the whole ``ops.ssd`` against ``ssd_chunked_ref`` with its launches
+    (one of each kernel, none of ssd_chunk); returns each kernel's max abs
+    error at the serving shape with the model's A (the main path's case)."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.ssd_scan.kernel import (ssd_chunk_scan,
+                                                     ssd_chunk_state,
+                                                     ssd_state_pass)
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.ssd_scan.ref import (chunk_cumsum, chunk_scan_ref,
+                                                  chunk_state_ref, pass_states)
+    errs = {}
+    cases = SSD_BF16_GRID + [SSD_SERVE + (False,), SSD_SERVE + (True,)]
+    for i, shape in enumerate(cases):
+        for with_h0 in (True, False):  # h0 None last: the main path's case
+            x, dt, A, B, C, D = ssd_inputs(shape, torch.bfloat16, device,
+                                           seed=300 + i)
+            Bt, S, H, P, G, N, chunk = shape[:7]
+            h0 = torch.randn(Bt, H, P, N, device=device) if with_h0 else None
+            cum = chunk_cumsum(dt, A, chunk)
+            got, ref = {}, {}
+            got["chunk_in"], got["cum"] = ssd_chunk_state(x, dt, A, B,
+                                                          chunk=chunk)
+            got["h_ins"], got["h_final"] = ssd_state_pass(got["chunk_in"], cum,
+                                                          h0, chunk=chunk)
+            got["y"] = ssd_chunk_scan(x, dt, cum, B, C, D, got["h_ins"],
+                                      chunk=chunk)
+            torch.cuda.synchronize(device)
+            # each kernel from the same inputs as its plain version
+            ref["cum"] = cum
+            ref["chunk_in"] = chunk_state_ref(x, dt, cum, B, chunk=chunk)
+            ref["h_ins"], ref["h_final"] = pass_states(
+                got["chunk_in"], torch.exp(cum[:, chunk - 1::chunk]), h0)
+            ref["y"] = chunk_scan_ref(x, dt, cum, B, C, D, got["h_ins"],
+                                      chunk=chunk)
+            LAUNCHES.clear()
+            got["whole y"], got["whole h_final"] = ssd(x, dt, A, B, C, D,
+                                                       chunk=chunk, h0=h0)
+            torch.cuda.synchronize(device)
+            launches = dict(LAUNCHES)
+            ref["whole y"], ref["whole h_final"] = ssd(x, dt, A, B, C, D,
+                                                       chunk=chunk, h0=h0,
+                                                       impl="reference")
+            line = []
+            for what in got:
+                # the cumsum adds in PyTorch's order with its roundings: to
+                # the bit
+                tol = {"y": TOL["bfloat16"], "cum": 0.0}.get(what.split()[-1],
+                                                           SSD_TOL)
+                o, r = got[what], ref[what]
+                check(o.dtype == r.dtype and o.shape == r.shape
+                      and bool(torch.isfinite(o).all()), f"bad {what}")
+                e, excess = excess_error(o, r, tol)
+                check(excess <= 0, f"bf16 SSD {what} disagrees with plain at "
+                      f"{shape} h0={with_h0}: max|err| {e:.3e} (tol {tol:g})")
+                errs[what] = e
+                line.append(f"{what} {e:.3e}")
+            check(launches == {"ssd_chunk_state": 1, "ssd_state_pass": 1,
+                               "ssd_chunk_scan": 1},
+                  f"bf16 ops.ssd launched {launches}")
+            print(f"[kernel] ssd bf16 (Bt,S,H,P,G,N,chunk,model A)={shape} "
+                  f"h0={with_h0}: min cum {cum.min().item():.1f}, max|err| "
+                  + ", ".join(line) + f" (tol y {TOL['bfloat16']:g}, cum 0, "
+                  f"the rest {SSD_TOL:g}, abs + rel)")
+    return {"ssd_chunk_state": max(errs["cum"], errs["chunk_in"]),
+            "ssd_state_pass": max(errs["h_ins"], errs["h_final"]),
+            "ssd_chunk_scan": errs["y"]}
+
+
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple:
+    """(least ms, "bytes" or "operations") for this many bytes and flops."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def ssd_bound_ms(shape, in_bytes: int, peak_flops: float) -> tuple:
     """Least time for the SSD intra-chunk term: x, dt, cum, B and C read
     once (B and C by group), y_intra and chunk_in (f32) written once;
@@ -355,8 +462,95 @@ def ssd_bound_ms(shape, in_bytes: int, peak_flops: float) -> tuple:
               + in_bytes * 2 * Bt * S * G * N
               + 4 * Bt * S * H * P + 4 * Bt * nc * H * P * N)
     flops = Bt * H * nc * (Q * (Q + 1) // 2 * (2 * N + 2 * P) + 2 * Q * P * N)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return bound(nbytes, flops, peak_flops)
+
+
+def ssd_bf16_bounds(shape) -> dict:
+    """Least ms of each bf16 kernel and of the whole ``ops.ssd`` at ``shape``
+    (bf16 x, B, C; f32 dt, cum, chunk_in, h_ins, h_final): each input read
+    once, each output written once; the function's products once (the hi +
+    lo split doubles three of them in the kernels; the bound does not
+    count that)."""
+    Bt, S, H, P, G, N, Q = shape
+    nc = S // Q
+    x, bc, f32 = 2 * Bt * S * H * P, 2 * Bt * S * G * N, 4 * Bt * S * H
+    # ssd_chunk_state reads dt and A and writes cum and chunk_in; the other
+    # two read cum
+    states = 4 * Bt * nc * H * P * N
+    causal = Q * (Q + 1) // 2  # (q, k) pairs a chunk keeps
+    cb_flops = Bt * nc * G * causal * 2 * N       # C.B^T once per group
+    intra = Bt * nc * H * causal * 2 * P           # scores . x
+    carry = Bt * nc * H * 2 * Q * N * P            # C . h_in
+    state = Bt * nc * H * 2 * Q * P * N            # (x w)^T . B
+    return {
+        "ssd_chunk_state": bound(x + 2 * f32 + 4 * H + bc + states, state),
+        "ssd_state_pass": bound(2 * states + 4 * Bt * nc * H
+                                + 4 * Bt * H * P * N, 2 * Bt * nc * H * P * N,
+                                PEAK_F32_FLOPS),
+        "ssd_chunk_scan": bound(2 * x + 2 * f32 + 2 * bc + 4 * H + states,
+                                cb_flops + intra + carry),
+        # x, dt, cum, B and C read once, y and h_final written once
+        "ops.ssd": bound(2 * x + 2 * f32 + 2 * bc + 4 * Bt * H * P * N,
+                         cb_flops + intra + carry + state),
+    }
+
+
+def ssd_bf16_timing(device) -> dict:
+    """Phase 3 for the bf16 path at the serving shape (model A): each kernel
+    beside its plain version and its bound, then the whole bf16 ``ops.ssd``
+    beside the path it replaced (``ops._intra_then_pass``: ssd_chunk and its
+    PyTorch glue) and ``ssd_chunked_ref``, in this run.  No single PyTorch
+    call computes any of them: library_ms null."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel, ops
+    from repro_torch.kernels.ssd_scan.ref import (chunk_cumsum, chunk_scan_ref,
+                                                  chunk_state_ref, pass_states,
+                                                  ssd_chunked_ref)
+    x, dt, A, B, C, D = ssd_inputs(SSD_SERVE + (True,), torch.bfloat16, device,
+                                   seed=99)
+    chunk = SSD_SERVE[6]
+    cum = chunk_cumsum(dt, A, chunk)
+    chunk_in, _ = kernel.ssd_chunk_state(x, dt, A, B, chunk=chunk)
+    h_ins, _ = kernel.ssd_state_pass(chunk_in, cum, chunk=chunk)
+    decay = torch.exp(cum[:, chunk - 1::chunk])
+    runs = {
+        "ssd_chunk_state": (
+            lambda: kernel.ssd_chunk_state(x, dt, A, B, chunk=chunk),
+            lambda: chunk_state_ref(x, dt, chunk_cumsum(dt, A, chunk), B,
+                                    chunk=chunk)),
+        "ssd_state_pass": (
+            lambda: kernel.ssd_state_pass(chunk_in, cum, chunk=chunk),
+            lambda: pass_states(chunk_in, decay)),
+        "ssd_chunk_scan": (
+            lambda: kernel.ssd_chunk_scan(x, dt, cum, B, C, D, h_ins,
+                                          chunk=chunk),
+            lambda: chunk_scan_ref(x, dt, cum, B, C, D, h_ins, chunk=chunk)),
+    }
+    bounds = ssd_bf16_bounds(SSD_SERVE)
+    out = {}
+    for name, (fast, plain) in runs.items():
+        out[name] = {"ms": time_ms(fast, 20),
+                     "plain_ms": time_ms(plain, 3, warmup=1),
+                     "library_ms": None}
+        out[name]["bound_ms"], out[name]["bound_by"] = bounds[name]
+        if name in ("ssd_chunk_state", "ssd_chunk_scan"):
+            out[name].update(kernel.attributes(name, *SSD_SERVE[3:6:2]))
+        print(f"[timing] {name} at Bt=4 S=2048 H=48 P=64 G=1 N=128 chunk=256 "
+              "bf16 (no single PyTorch call computes it: library_ms null): "
+              + ", ".join(f"{k} {v}" for k, v in out[name].items()))
+    whole = {
+        "ms": time_ms(lambda: ops.ssd(x, dt, A, B, C, D, chunk=chunk), 20),
+        "replaced_ms": time_ms(lambda: ops._intra_then_pass(
+            x, dt, A, B, C, D, chunk=chunk), 10),
+        "plain_ms": time_ms(lambda: ssd_chunked_ref(x, dt, A, B, C, D,
+                                                    chunk=chunk), 3, warmup=1),
+    }
+    whole["bound_ms"], whole["bound_by"] = bounds["ops.ssd"]
+    print("[timing] whole bf16 ops.ssd at the same shape (ms; replaced_ms: "
+          "ssd_chunk and its PyTorch glue, the bf16 path before; plain_ms: "
+          "ssd_chunked_ref): " + ", ".join(f"{k} {v}" for k, v in whole.items()))
+    out["ssd_chunk_scan"]["whole_ops_ssd"] = whole
+    return out
 
 
 def ssd_timing(device) -> dict:
@@ -407,8 +601,7 @@ def attention_bound_ms(shape, dtype_bytes: int, peak_flops: float) -> tuple:
         pairs += hi - lo
     flops = 4 * hd * B * H * pairs
     nbytes = dtype_bytes * (2 * B * S * H * hd + 2 * B * S * KH * hd)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return bound(nbytes, flops, peak_flops)
 
 
 def kernel_timing(device, shape) -> dict:
@@ -509,10 +702,8 @@ def rglru_timing(device) -> dict:
         "plain_ms": time_ms(lambda: rglru_scan_ref(a, u, h0), 3, warmup=1),
         "library_ms": None,
     }
-    t_bytes = 4 * (3 * B * S * R + B * R) / PEAK_BYTES * 1e3
-    t_ops = 2 * B * S * R / PEAK_F32_FLOPS * 1e3
-    out["bound_ms"] = max(t_bytes, t_ops)
-    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    out["bound_ms"], out["bound_by"] = bound(4 * (3 * B * S * R + B * R),
+                                             2 * B * S * R, PEAK_F32_FLOPS)
     print(f"[timing] rglru_scan at B={B} S={S} R={R} f32 (no single PyTorch "
           "call computes it: library_ms null): "
           + ", ".join(f"{k} {v}" for k, v in out.items()))
@@ -523,7 +714,8 @@ def serve_and_check(device, arch: str) -> dict:
     """Phase 4 for one model: the main path, its launch counts (each
     kernel of ``PATHS[arch]`` that many times per prefill round, no other
     kernel), and in-model parity of kernel against plain.  Returns the
-    launch counts."""
+    launch counts, and for the recurrent models under "f32 compute" those of
+    the f32-compute logits gate."""
     import numpy as np
     import torch
     from repro_torch.configs import ARCHS
@@ -549,7 +741,9 @@ def serve_and_check(device, arch: str) -> dict:
     if cfg.ssm or "rglru" in cfg.layer_kinds:
         (ssd_layer_parity if cfg.ssm else hybrid_layer_parity)(cfg, model, batch)
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        LAUNCHES.clear()
         logit_parity(cfg32, model, batch, F32_LOGIT_ATOL, device)
+        launches["f32 compute"] = dict(LAUNCHES)  # the gate's own launches
         logit_parity(cfg, model, batch, None, device)  # printed, not gated
     else:
         logit_parity(cfg, model, batch, LOGIT_ATOL, device)
@@ -733,14 +927,16 @@ def main() -> int:
     for name, log in logs.items():
         for ln in ptxas_summary(log):
             print(f"[build] {name}: {ln}")
-    spill_gate(ptxas_summary(logs["flash_attn_fwd"]))
+    spill_gate(logs)
 
     errs = kernel_vs_plain(device)
     ssd_err = ssd_kernel_vs_plain(device)
+    ssd_bf16_errs = ssd_bf16_vs_plain(device)
     rglru_err = rglru_kernel_vs_plain(device)
     timings = {shape: kernel_timing(device, shape)
                for shape in (SERVE_SHAPE, RG_SERVE_SHAPE)}
     ssd_time = ssd_timing(device)
+    ssd_bf16_time = ssd_bf16_timing(device)
     rglru_time = rglru_timing(device)
     launches = {arch: serve_and_check(device, arch) for arch in PATHS}
 
@@ -750,6 +946,22 @@ def main() -> int:
          "max_abs_err": errs[shape], **timings[shape]}
         for shape, arch in ((SERVE_SHAPE, "qwen3-0.6b"),
                             (RG_SERVE_SHAPE, "recurrentgemma-2b"))]
+    ssd_bf16 = [{
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_bf16.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:48",
+        "design": {
+            "ssd_chunk_state": "the chunk cumsum in PyTorch's order, then "
+                               "tensor cores (mma.sync m16n8k16 bf16 -> f32; "
+                               "x.w as hi + lo bf16; x by ldmatrix.trans)",
+            "ssd_state_pass": "f32 recurrence over the chunks, 4 elements a "
+                              "thread",
+            "ssd_chunk_scan": "tensor cores (C.B^T once per warp in "
+                              "registers; scores and h_in as hi + lo bf16; "
+                              "two cp.async stages; y written once)"}[name],
+        "launches": launches["mamba2-780m"].get(name, 0),
+        "max_abs_err": ssd_bf16_errs[name], **ssd_bf16_time[name]}
+        for name in ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")]
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attn_fwd.cu",
@@ -765,8 +977,13 @@ def main() -> int:
         "name": "ssd_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:48",
+        "design": "f32 inputs: CUDA cores",
+        # no served path runs it since bf16 went to ssd_bf16.cu; mamba2-780m's
+        # f32-compute logits gate does
         "launches": launches["mamba2-780m"].get("ssd_chunk", 0),
-        "max_abs_err": ssd_err, **ssd_time}, {
+        "f32_compute_launches":
+            launches["mamba2-780m"]["f32 compute"].get("ssd_chunk", 0),
+        "max_abs_err": ssd_err, **ssd_time}, *ssd_bf16, {
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:41",

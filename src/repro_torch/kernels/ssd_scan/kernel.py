@@ -1,36 +1,59 @@
-"""ctypes wrapper of the CUDA SSD intra-chunk kernel (``csrc/ssd_chunk.cu``),
-the port of ``ssd_chunk_pallas``.
+"""ctypes wrappers of the CUDA SSD kernels, the port of ``ssd_chunk_pallas``.
 
-On a CPU tensor the wrapper computes the kernel's plain version
-(``ref.ssd_chunk_ref``); on a CUDA tensor it launches the kernel or raises.
+- ``ssd_chunk`` (``csrc/ssd_chunk.cu``): the intra-chunk term and each
+  chunk's input to the state, on the CUDA cores in f32; ``ops.ssd`` takes it
+  for f32 inputs.
+- ``ssd_chunk_state``, ``ssd_state_pass`` and ``ssd_chunk_scan``
+  (``csrc/ssd_bf16.cu``): the whole SSD for bf16 inputs, its products on the
+  tensor cores, y written once; ``ops.ssd`` takes them for bf16 inputs.
+
+On a CPU tensor each wrapper computes its kernel's plain version (``ref``);
+on a CUDA tensor it checks its inputs, launches the kernel and counts the
+launch in ``LAUNCHES`` under its own name, or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import LAUNCHES
 from ..build import load
-from .ref import ssd_chunk_ref
+from .ref import (chunk_cumsum, chunk_scan_ref, chunk_state_ref, pass_states,
+                  ssd_chunk_ref)
 
 NAME = "ssd_chunk"
-# (head dim P, state N) instantiated in the .cu file: (16, 16) the reduced
+BF16_LIBRARY = "ssd_bf16"
+# (head dim P, state N) instantiated in both .cu files: (16, 16) the reduced
 # configs', (16, 32) and (32, 16) the test grid's, (64, 128) mamba2-780m's
 PN_PAIRS = ((16, 16), (16, 32), (32, 16), (64, 128))
 MAX_CHUNK = 256
+# Heads a block of ssd_chunk_state and of ssd_chunk_scan walks (fewer at a
+# group's end): B and C.B^T are staged and formed once for them.  The fastest
+# of 1..16 and of 3..24 at mamba2-780m's serving shape on the H100
+# (tools/ssd_tune.py, PERF.md).
+STATE_HEAD_BLOCK = 6
+SCAN_HEAD_BLOCK = 12
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_X = 2 ** 31 - 1
 _MAX_GRID_Y = 65535
 
 
-def _function():
-    fn = load(NAME).ssd_chunk
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+@functools.cache
+def _function(library: str, name: str, n_ptr: int, n_int: int):
+    fn = getattr(load(library), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(x, dt, cum, B, C, chunk):
+def _check(x, dt, cum, B, C, chunk, dtypes=tuple(_DTYPES)):
+    """The checks every SSD kernel shares; cum and C may be None (not an
+    input)."""
+    cum = dt if cum is None else cum
+    C = B if C is None else C
     if x.dim() != 4 or dt.dim() != 3 or cum.dim() != 3 or B.dim() != 4 \
             or C.dim() != 4:
         raise ValueError("x must be (Bt, S, H, P), dt and cum (Bt, S, H), "
@@ -50,20 +73,34 @@ def _check(x, dt, cum, B, C, chunk):
     if not 1 <= chunk <= MAX_CHUNK or S % chunk:
         raise ValueError(f"chunk {chunk} must lie in 1..{MAX_CHUNK} and divide "
                          f"S={S} (ops.ssd pads to a chunk multiple)")
-    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+    if x.dtype not in dtypes or B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"dtypes {x.dtype}, {B.dtype}, {C.dtype}: x, B and C "
-                        "must be float32 or bfloat16, the same for all three")
+                        f"must be one of {[str(d) for d in dtypes]}, the same "
+                        "for all three")
     if dt.dtype != torch.float32 or cum.dtype != torch.float32:
         raise TypeError(f"dt and cum must be float32, got {dt.dtype}, {cum.dtype}")
-    tensors = (x, dt, cum, B, C)
-    if len({t.device for t in tensors}) != 1 or x.device.type != "cuda":
-        raise ValueError("x, dt, cum, B, C must lie on one CUDA device: "
+
+
+def _check_device(*tensors, aligned: bool = True):
+    """One CUDA device, contiguous and, for the bf16 kernels, which copy rows
+    in 16-byte pieces, 16-byte aligned; None entries are skipped."""
+    tensors = [t for t in tensors if t is not None]
+    if len({t.device for t in tensors}) != 1 or tensors[0].device.type != "cuda":
+        raise ValueError("the inputs must lie on one CUDA device: "
                          f"{[str(t.device) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("x, dt, cum, B, C must be contiguous")
-    if S // chunk > _MAX_GRID_Y or Bt * H >= 2 ** 31:
-        raise ValueError(f"S/chunk={S // chunk}, Bt*H={Bt * H} exceed the "
-                         "kernel's grid")
+        raise ValueError("the inputs must be contiguous")
+    if aligned and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the inputs must start on a 16-byte boundary")
+
+
+def _launch(name: str, fn, *args, device) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
@@ -74,18 +111,139 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, dt, cum, B, C, chunk=chunk)
     _check(x, dt, cum, B, C, chunk)
+    _check_device(x, dt, cum, B, C, aligned=False)
     Bt, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
+    if S // chunk > _MAX_GRID_Y or Bt * H >= 2 ** 31:
+        raise ValueError(f"S/chunk={S // chunk}, Bt*H={Bt * H} exceed the "
+                         "kernel's grid")
     nc = S // chunk
     y = torch.empty(Bt, S, H, P, dtype=torch.float32, device=x.device)
     chunk_in = torch.empty(Bt, nc, H, P, N, dtype=torch.float32, device=x.device)
-    fn = _function()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B.data_ptr(),
-                 C.data_ptr(), y.data_ptr(), chunk_in.data_ptr(),
-                 Bt, S, H, G, P, N, chunk, _DTYPES[x.dtype], stream)
-    if err:
-        raise RuntimeError(f"{NAME} launch failed with CUDA error {err}")
-    LAUNCHES[NAME] += 1
+    _launch(NAME, _function(NAME, "ssd_chunk", 7, 8),
+            x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), chunk_in.data_ptr(),
+            Bt, S, H, G, P, N, chunk, _DTYPES[x.dtype], device=x.device)
     return y, chunk_in
+
+
+def _check_grid(x, B, chunk: int, head_block: int) -> None:
+    """ssd_chunk_state and ssd_chunk_scan take a block per (batch * chunk,
+    group, head block)."""
+    Bt, S, H, _ = x.shape
+    G = B.shape[2]
+    blocks = Bt * (S // chunk) * G * -(-(H // G) // head_block)
+    if blocks > _MAX_GRID_X:
+        raise ValueError(f"{blocks} blocks exceed the kernel's grid")
+
+
+def ssd_chunk_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, *, chunk: int):
+    """x: (Bt, S, H, P) bf16; dt: (Bt, S, H) f32; A: (H,) f32; B:
+    (Bt, S, G, N) bf16.
+
+    Returns (chunk_in (Bt, S/chunk, H, P, N), cum (Bt, S, H)), f32: each
+    chunk's input to the state (``chunk_state_ref``) and the within-chunk
+    cumsum of A.dt (``chunk_cumsum``, to the bit)."""
+    if x.device.type == "cpu":
+        cum = chunk_cumsum(dt, A, chunk)
+        return chunk_state_ref(x, dt, cum, B, chunk=chunk), cum
+    _check(x, dt, None, B, None, chunk, dtypes=(torch.bfloat16,))
+    if A.shape != (x.shape[2],) or A.dtype != torch.float32:
+        raise ValueError(f"A must be ({x.shape[2]},) float32, got "
+                         f"{tuple(A.shape)} {A.dtype}")
+    _check_grid(x, B, chunk, STATE_HEAD_BLOCK)
+    _check_device(x, dt, A, B)
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    chunk_in = torch.empty(Bt, S // chunk, H, P, N, dtype=torch.float32,
+                           device=x.device)
+    cum = torch.empty_like(dt)
+    _launch("ssd_chunk_state", _function(BF16_LIBRARY, "ssd_chunk_state", 6, 8),
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            chunk_in.data_ptr(), cum.data_ptr(), Bt, S, H, G, P, N, chunk,
+            STATE_HEAD_BLOCK, device=x.device)
+    return chunk_in, cum
+
+
+def ssd_state_pass(chunk_in: torch.Tensor, cum: torch.Tensor,
+                   h0: torch.Tensor | None = None, *, chunk: int):
+    """chunk_in: (Bt, nc, H, P, N) f32; cum: (Bt, nc * chunk, H) f32; h0:
+    (Bt, H, P, N) f32 or None (zeros).
+
+    Returns (h_ins (Bt, nc, H, P, N), h_final (Bt, H, P, N)), f32: the state
+    entering each chunk and the state after the last (``pass_states``)."""
+    if chunk_in.device.type == "cpu":
+        return pass_states(chunk_in, torch.exp(cum[:, chunk - 1::chunk]), h0)
+    if chunk_in.dim() != 5 or cum.dim() != 3:
+        raise ValueError("chunk_in must be (Bt, nc, H, P, N), cum (Bt, S, H)")
+    Bt, nc, H, P, N = chunk_in.shape
+    if cum.shape != (Bt, nc * chunk, H) or not 1 <= chunk <= MAX_CHUNK \
+            or nc < 1 or (P * N) % 4:
+        raise ValueError(f"shapes do not match: chunk_in {tuple(chunk_in.shape)}"
+                         f", cum {tuple(cum.shape)}, chunk {chunk} (1.."
+                         f"{MAX_CHUNK}; P*N a multiple of 4)")
+    if h0 is not None and h0.shape != (Bt, H, P, N):
+        raise ValueError(f"h0 must be {(Bt, H, P, N)}, got {tuple(h0.shape)}")
+    if any(t.dtype != torch.float32 for t in (chunk_in, cum, h0)
+           if t is not None):
+        raise TypeError("chunk_in, cum and h0 must be float32")
+    if Bt * H * P * N // 4 > _MAX_GRID_X:
+        raise ValueError(f"Bt*H*P*N/4={Bt * H * P * N // 4} exceeds the "
+                         "kernel's grid")
+    _check_device(chunk_in, cum, h0)
+    h_ins = torch.empty_like(chunk_in)
+    h_final = torch.empty(Bt, H, P, N, dtype=torch.float32,
+                          device=chunk_in.device)
+    _launch("ssd_state_pass", _function(BF16_LIBRARY, "ssd_state_pass", 5, 6),
+            chunk_in.data_ptr(), cum.data_ptr(),
+            None if h0 is None else h0.data_ptr(), h_ins.data_ptr(),
+            h_final.data_ptr(), Bt, nc * chunk, H, P, N, chunk,
+            device=chunk_in.device)
+    return h_ins, h_final
+
+
+def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                   h_ins: torch.Tensor, *, chunk: int) -> torch.Tensor:
+    """x: (Bt, S, H, P) bf16; dt, cum: (Bt, S, H) f32; B, C: (Bt, S, G, N)
+    bf16; D: (H,) f32; h_ins: (Bt, S/chunk, H, P, N) f32.
+
+    Returns y (Bt, S, H, P) bf16: intra-chunk term, carry of h_ins and D
+    skip, rounded once (``chunk_scan_ref``)."""
+    if x.device.type == "cpu":
+        return chunk_scan_ref(x, dt, cum, B, C, D, h_ins, chunk=chunk)
+    _check(x, dt, cum, B, C, chunk, dtypes=(torch.bfloat16,))
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if D.shape != (H,) or h_ins.shape != (Bt, S // chunk, H, P, N):
+        raise ValueError(f"D must be {(H,)} and h_ins "
+                         f"{(Bt, S // chunk, H, P, N)}, got {tuple(D.shape)}, "
+                         f"{tuple(h_ins.shape)}")
+    if D.dtype != torch.float32 or h_ins.dtype != torch.float32:
+        raise TypeError(f"D and h_ins must be float32, got {D.dtype}, "
+                        f"{h_ins.dtype}")
+    _check_grid(x, B, chunk, SCAN_HEAD_BLOCK)
+    _check_device(x, dt, cum, B, C, D, h_ins)
+    y = torch.empty_like(x)
+    _launch("ssd_chunk_scan", _function(BF16_LIBRARY, "ssd_chunk_scan", 8, 8),
+            x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B.data_ptr(),
+            C.data_ptr(), D.data_ptr(), h_ins.data_ptr(), y.data_ptr(),
+            Bt, S, H, G, P, N, chunk, SCAN_HEAD_BLOCK, device=x.device)
+    return y
+
+
+def attributes(kernel: str, P: int, N: int) -> dict:
+    """Registers, local bytes (spills and stack) and shared bytes of the
+    compiled ``ssd_chunk_state`` or ``ssd_chunk_scan`` at (P, N) and the
+    default head block, by ``cudaFuncGetAttributes``."""
+    which = {"ssd_chunk_state": 0, "ssd_chunk_scan": 1}[kernel]
+    fn = getattr(load(BF16_LIBRARY), "ssd_bf16_attributes")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = fn(which, P, N, STATE_HEAD_BLOCK, *(ctypes.byref(v) for v in vals))
+    if err:
+        raise RuntimeError(f"ssd_bf16_attributes failed with CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes"),
+                    (v.value for v in vals)))

@@ -7,8 +7,11 @@
     y_t = C_t · h_t + D ⊙ x_t
 
 ``ssd_chunked_ref`` is the chunked form: within a chunk the masked,
-attention-like C·Bᵀ product (``ssd_chunk_ref``, the function of the CUDA
-kernel, in its layout), across chunks a state-passing loop.
+attention-like C·Bᵀ product and each chunk's input to the state
+(``ssd_chunk_ref``, the function of the f32 CUDA kernel, in its layout),
+across chunks a state-passing loop (``pass_states``), then the carry of the
+incoming state and the D skip.  The bf16 CUDA kernels split the same
+function as ``chunk_state_ref``, ``pass_states`` and ``chunk_scan_ref``.
 
 Every product is a two-operand ``einsum`` or ``matmul`` (B and C are read by
 group, never repeated to every head): at the serving shape a poor contraction
@@ -51,17 +54,13 @@ def chunk_cumsum(dt, A, chunk: int):
     return torch.cumsum(a, dim=2).reshape(Bt, S, H)
 
 
-def ssd_chunk_ref(x, dt, cum, B, C, *, chunk: int):
-    """The CUDA kernel's function (``csrc/ssd_chunk.cu``) in its layout.
+def chunk_intra_ref(x, dt, cum, B, C, *, chunk: int):
+    """The intra-chunk term, for each (batch, head, chunk), in f32:
+
+        y_intra[q] = sum_{k<=q} (C_q . B_k) . exp(cum_q - cum_k) . dt_k . x_k
 
     x: (Bt, S, H, P); dt, cum: (Bt, S, H) f32 (cum the within-chunk cumsum
-    of A·dt); B, C: (Bt, S, G, N); S % chunk == 0.  For each (batch, head,
-    chunk), in f32:
-
-        y_intra[q]  = Σ_{k≤q} (C_q·B_k) · exp(cum_q − cum_k) · dt_k · x_k
-        chunk_in    = Σ_k (x_k · dt_k · exp(cum_end − cum_k)) ⊗ B_k
-
-    Returns (y_intra (Bt, S, H, P), chunk_in (Bt, nc, H, P, N)), both f32.
+    of A.dt); B, C: (Bt, S, G, N); S % chunk == 0.  Returns (Bt, S, H, P) f32.
     """
     Bt, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
@@ -82,13 +81,34 @@ def ssd_chunk_ref(x, dt, cum, B, C, *, chunk: int):
     scores = (L.reshape(Bt, nc, G, R, Q, Q) * cb[:, :, :, None]).reshape(
         Bt, nc, H, Q, Q) * dtf.permute(0, 1, 3, 2)[..., None, :]
     y = torch.matmul(scores, xf.permute(0, 1, 3, 2, 4))  # (Bt, nc, H, Q, P)
-    y_intra = y.permute(0, 1, 3, 2, 4).reshape(Bt, S, H, P)
+    return y.permute(0, 1, 3, 2, 4).reshape(Bt, S, H, P)
 
+
+def chunk_state_ref(x, dt, cum, B, *, chunk: int):
+    """Each chunk's input to the state (``ssd_chunk_state``'s function), f32:
+
+        chunk_in = sum_k (x_k . dt_k . exp(cum_end - cum_k)) (outer) B_k
+
+    Shapes as ``chunk_intra_ref``.  Returns (Bt, nc, H, P, N) f32."""
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    R, nc, Q = H // G, S // chunk, chunk
+    xf = x.float().reshape(Bt, nc, Q, H, P)
+    dtf = dt.float().reshape(Bt, nc, Q, H)
+    cumf = cum.float().reshape(Bt, nc, Q, H)
+    Bf = B.float().reshape(Bt, nc, Q, G, N)
     w = dtf * torch.exp(cumf[:, :, -1:] - cumf)  # (Bt, nc, Q, H), <= dt
     xw = (xf * w[..., None]).reshape(Bt, nc, Q, G, R, P)
-    chunk_in = torch.einsum("bckgrp,bckgn->bcgrpn", xw, Bf).reshape(
+    return torch.einsum("bckgrp,bckgn->bcgrpn", xw, Bf).reshape(
         Bt, nc, H, P, N)
-    return y_intra, chunk_in
+
+
+def ssd_chunk_ref(x, dt, cum, B, C, *, chunk: int):
+    """The f32 CUDA kernel's function (``csrc/ssd_chunk.cu``) in its layout:
+    (y_intra (Bt, S, H, P), chunk_in (Bt, nc, H, P, N)), both f32, as
+    ``chunk_intra_ref`` and ``chunk_state_ref`` compute them."""
+    return (chunk_intra_ref(x, dt, cum, B, C, chunk=chunk),
+            chunk_state_ref(x, dt, cum, B, chunk=chunk))
 
 
 def pass_states(chunk_in, chunk_decay, h0=None):
@@ -114,14 +134,27 @@ def carry(C, h_ins, cum, *, chunk: int):
     return (y.reshape(Bt, nc * chunk, H, P) * torch.exp(cum)[..., None])
 
 
+def combine(x, y_intra, C, h_ins, cum, D, *, chunk: int):
+    """y = y_intra + carry + D.x, rounded once to x's dtype."""
+    y = y_intra + carry(C, h_ins, cum, chunk=chunk) + x.float() * D[:, None]
+    return y.to(x.dtype)
+
+
+def chunk_scan_ref(x, dt, cum, B, C, D, h_ins, *, chunk: int):
+    """``ssd_chunk_scan``'s function: y of every chunk from its intra term,
+    its incoming state h_ins (Bt, nc, H, P, N) f32 and the D skip, in x's
+    dtype."""
+    return combine(x, chunk_intra_ref(x, dt, cum, B, C, chunk=chunk), C, h_ins,
+                   cum, D, chunk=chunk)
+
+
 def ssd_chunked_ref(x, dt, A, B, C, D, chunk: int, h0=None):
     """Chunked SSD, same contract as ``ssd_ref``; S % chunk == 0."""
     cum = chunk_cumsum(dt, A, chunk)
     y_intra, chunk_in = ssd_chunk_ref(x, dt.float(), cum, B, C, chunk=chunk)
     h_ins, h_final = pass_states(chunk_in, torch.exp(cum[:, chunk - 1::chunk]),
                                  h0)
-    y = y_intra + carry(C, h_ins, cum, chunk=chunk) + x.float() * D[:, None]
-    return y.to(x.dtype), h_final
+    return combine(x, y_intra, C, h_ins, cum, D, chunk=chunk), h_final
 
 
 def ssd_decode_step(h, x, dt, A, B, C, D):

@@ -6,9 +6,12 @@ installed:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 2e-5 and bf16 2e-2 for the attention kernel
-(``tests/test_kernels.py``); 2e-4 for the SSD kernel in either input type
-(both sides compute in f32 from the same inputs and write f32: the f32 bound
-of ``tests/test_kernels.py``); for the RG-LRU scan 1e-5 on its f32 outputs
+(``tests/test_kernels.py``); 2e-4 for the f32 path's SSD kernel in either
+input type (both sides compute in f32 from the same inputs and write f32: the
+f32 bound of ``tests/test_kernels.py``); for the bf16 SSD path's kernels the
+cumsum to the bit, chunk states and final state 2e-4, y one bf16 step, 8e-3
+(both sides round y to bf16 once; the tensor cores take the f32 operands as
+hi + lo bf16 pairs, ``csrc/ssd_bf16.cu``); for the RG-LRU scan 1e-5 on its f32 outputs
 (the kernel takes the plain version's f32 products and sums in the same
 order with the same rounding, so they should agree exactly) and one bf16
 step, 8e-3, on h_seq from bf16 inputs; 1e-4 for f32 model logits through a
@@ -26,9 +29,13 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.kernel import ssd_chunk
 from repro_torch.kernels.ssd_scan.ops import ssd
-from repro_torch.kernels.ssd_scan.ref import chunk_cumsum, ssd_chunk_ref
+from repro_torch.kernels.ssd_scan.ref import (chunk_cumsum, chunk_scan_ref,
+                                              chunk_state_ref, pass_states,
+                                              ssd_chunk_ref)
+from repro_torch.models import ssm
 from repro_torch.models.lm import LM, init_params
 from repro_torch.models.steps import make_decode_step, make_prefill_step
 
@@ -88,6 +95,14 @@ SSD_SHAPES = [  # (Bt, S, H, P, G, N, chunk, model A): tests/test_kernels.py's g
     (4, 2048, 48, 64, 1, 128, 256, True),
 ]
 SSD_TOL = dict(rtol=2e-4, atol=2e-4)
+# The bf16 path also at G = 3, and chunks that are not a multiple of its
+# kernels' 16-row tiles
+SSD_BF16_SHAPES = SSD_SHAPES + [
+    (1, 96, 4, 16, 2, 32, 24, True),
+    (2, 64, 6, 32, 3, 16, 16, True),
+    (1, 40, 2, 16, 1, 16, 5, True),
+]
+BF16_KERNELS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
 RGLRU_SHAPES = [  # (B, S, R, h0, model a)
     (1, 64, 64, True, False),           # tests/test_kernels.py's grid
     (2, 128, 128, True, False),
@@ -172,16 +187,95 @@ def test_ssd_padded_through_the_kernel_on_card(cuda_device, dtype):
     """S = 80 with chunk 32: ops.ssd pads to 96 and launches the kernel once."""
     x, dt, A, B, C, D = _ssd_inputs(cuda_device, dtype, 1, 80, 2, 16, 1, 16,
                                     False, seed=80)
-    before = LAUNCHES["ssd_chunk"]
+    LAUNCHES.clear()
     y, h = ssd(x, dt, A, B, C, D, chunk=32)
     torch.cuda.synchronize()
-    assert LAUNCHES["ssd_chunk"] == before + 1
+    # f32 takes the CUDA-core kernel, bf16 the tensor-core path
+    assert dict(LAUNCHES) == ({"ssd_chunk": 1} if dtype == torch.float32
+                              else dict.fromkeys(BF16_KERNELS, 1))
     y_ref, h_ref = ssd(x, dt, A, B, C, D, chunk=32, impl="reference")
     # both round y to x's dtype once; the f32 values differ only in the order
     # of sums, so y may differ by one step of its type
     tol = SSD_TOL if dtype == torch.float32 else dict(rtol=8e-3, atol=8e-3)
     np.testing.assert_allclose(_np(y), _np(y_ref), **tol)
     np.testing.assert_allclose(_np(h), _np(h_ref), **SSD_TOL)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk,model_a", SSD_BF16_SHAPES)
+def test_ssd_bf16_path_vs_plain_on_card(cuda_device, Bt, S, H, P, G, N, chunk,
+                                        model_a, with_h0):
+    """Each kernel of the bf16 path against its plain version from the same
+    inputs, then the whole ``ops.ssd`` against ``ssd_chunked_ref`` with one
+    launch of each kernel."""
+    x, dt, A, B, C, D = _ssd_inputs(cuda_device, torch.bfloat16, Bt, S, H, P,
+                                    G, N, model_a, seed=S + H + 1)
+    h0 = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(Bt, H, P, N)).astype(np.float32)).to(cuda_device) if with_h0 else None
+    cum = chunk_cumsum(dt, A, chunk)
+    cin, cum_k = ssd_kernel.ssd_chunk_state(x, dt, A, B, chunk=chunk)
+    assert torch.equal(cum_k, cum)  # PyTorch's order and roundings
+    np.testing.assert_allclose(_np(cin), _np(chunk_state_ref(x, dt, cum, B, chunk=chunk)),
+                               **SSD_TOL)
+    h_ins, h_final = ssd_kernel.ssd_state_pass(cin, cum, h0, chunk=chunk)
+    ref_ins, ref_final = pass_states(cin, torch.exp(cum[:, chunk - 1::chunk]), h0)
+    np.testing.assert_allclose(_np(h_ins), _np(ref_ins), **SSD_TOL)
+    np.testing.assert_allclose(_np(h_final), _np(ref_final), **SSD_TOL)
+    y = ssd_kernel.ssd_chunk_scan(x, dt, cum, B, C, D, h_ins, chunk=chunk)
+    y_ref = chunk_scan_ref(x, dt, cum, B, C, D, h_ins, chunk=chunk)
+    assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+    np.testing.assert_allclose(_np(y), _np(y_ref), rtol=8e-3, atol=8e-3)
+
+    LAUNCHES.clear()
+    y, h = ssd(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == dict.fromkeys(BF16_KERNELS, 1)
+    y_ref, h_ref = ssd(x, dt, A, B, C, D, chunk=chunk, h0=h0, impl="reference")
+    np.testing.assert_allclose(_np(y), _np(y_ref), rtol=8e-3, atol=8e-3)
+    np.testing.assert_allclose(_np(h), _np(h_ref), **SSD_TOL)
+
+
+@pytest.mark.parametrize("P,N", ssd_kernel.PN_PAIRS)
+@pytest.mark.parametrize("name", ["ssd_chunk_state", "ssd_chunk_scan"])
+def test_ssd_bf16_kernels_use_no_local_memory(cuda_device, name, P, N):
+    attrs = ssd_kernel.attributes(name, P, N)
+    assert attrs["local_bytes"] == 0, attrs
+
+
+def test_reduced_mamba2_in_bf16_runs_the_tensor_core_path(cuda_device):
+    """A reduced mamba2-780m in bf16 compute prefills through the bf16 path,
+    one launch of each kernel a layer, and each layer's SSD output is within
+    one bf16 step of the plain path's from the same inputs."""
+    import dataclasses
+    cfg = dataclasses.replace(ARCHS["mamba2-780m"].reduced(),
+                              compute_dtype="bfloat16")
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    model = LM(cfg, {k: t.to(cuda_device) for k, t in cpu.state_dict().items()})
+    prompts = torch.from_numpy(
+        np.random.default_rng(5).integers(0, cfg.vocab, size=(2, 40)))
+    plain_ssd, calls = ssm.ssd, []
+
+    def both(x, dt, A, B, C, D, *, chunk, impl):
+        y_ref, h_ref = plain_ssd(x, dt, A, B, C, D, chunk=chunk, impl="reference")
+        y, h = plain_ssd(x, dt, A, B, C, D, chunk=chunk, impl=impl)
+        assert x.dtype == y.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(y), _np(y_ref), rtol=8e-3, atol=8e-3)
+        np.testing.assert_allclose(_np(h), _np(h_ref), **SSD_TOL)
+        calls.append(x.shape)
+        return y, h
+
+    ssm.ssd = both
+    try:
+        with torch.inference_mode():
+            LAUNCHES.clear()
+            logits, _ = make_prefill_step(cfg, cache_len=44)(
+                model, {"tokens": prompts.to(cuda_device)})
+            torch.cuda.synchronize()
+    finally:
+        ssm.ssd = plain_ssd
+    assert len(calls) == cfg.n_layers
+    assert dict(LAUNCHES) == dict.fromkeys(BF16_KERNELS, cfg.n_layers)
+    assert bool(torch.isfinite(logits).all())
 
 
 def _rglru_inputs(device, dtype, B, S, R, h0, model_a, seed):

@@ -8,9 +8,13 @@ draws them, and handed to both packages.  Tolerances:
 - ``ops.ssd`` against the JAX package: that file's, y 2e-4 in f32 and 5e-2 in
   bf16 (one rounding of the output), final state 1e-3;
 - the decode step (f32): 1e-5, the two packages differ only in the order of
-  a few f32 products.
-The CUDA kernel itself is held against ``ssd_chunk_ref`` on the card in
-``tests/test_torch_cuda.py``.
+  a few f32 products;
+- the bf16 tensor-core path's rounding, emulated here (``_emulate``), against
+  the plain path and the JAX package: y one bf16 step (8e-3 abs + rel, both
+  round y to bf16 once), h_final 2e-4 abs + rel, as ``chip_smoke.py`` holds
+  the kernels on the card.
+The CUDA kernels themselves are held against their plain versions on the
+card in ``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,11 +27,13 @@ from repro.kernels.ssd_scan.ref import ssd_chunked_ref as jax_chunked
 from repro.kernels.ssd_scan.ref import ssd_decode_step as jax_decode
 from repro.kernels.ssd_scan.ref import ssd_ref as jax_sequential
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.ssd_scan.kernel import ssd_chunk
+from repro_torch.kernels.ssd_scan.kernel import (ssd_chunk, ssd_chunk_scan,
+                                                 ssd_chunk_state, ssd_state_pass)
 from repro_torch.kernels.ssd_scan.ops import ssd
-from repro_torch.kernels.ssd_scan.ref import (chunk_cumsum, ssd_chunk_ref,
-                                              ssd_chunked_ref, ssd_decode_step,
-                                              ssd_ref)
+from repro_torch.kernels.ssd_scan.ref import (chunk_cumsum, chunk_scan_ref,
+                                              chunk_state_ref, pass_states,
+                                              ssd_chunk_ref, ssd_chunked_ref,
+                                              ssd_decode_step, ssd_ref)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -208,3 +214,203 @@ def test_wrapper_refuses_mixed_input_types():
     B = torch.empty(1, 64, 1, 16, device="meta")
     with pytest.raises(TypeError, match="the same for all three"):
         ssd_chunk(x, dt, dt, B, B, chunk=16)
+
+
+@pytest.mark.parametrize("x,dt,B,chunk,error", [
+    ((1, 64, 2, 48), torch.bfloat16, (1, 64, 1, 16), 16, r"\(P, N\) = \(48, 16\)"),
+    ((1, 64, 3, 16), torch.bfloat16, (1, 64, 2, 16), 16, "head counts"),
+    ((1, 80, 2, 16), torch.bfloat16, (1, 80, 1, 16), 32, "divide"),
+    ((1, 512, 2, 16), torch.bfloat16, (1, 512, 1, 16), 512, "1..256"),
+    ((1, 64, 2, 16), torch.float32, (1, 64, 1, 16), 16, "bfloat16"),
+    ((1, 64, 2, 16), torch.bfloat16, (1, 32, 1, 16), 16, "shapes do not match"),
+    ((1, 64, 2, 16), torch.bfloat16, (1, 64, 1, 16), 16, "CUDA device"),
+])
+@pytest.mark.parametrize("kernel", ["ssd_chunk_state", "ssd_chunk_scan"])
+def test_bf16_wrappers_check_before_launching(kernel, x, dt, B, chunk, error):
+    """The tensor-core kernels' wrappers check shapes, the input type (bf16
+    x, B, C only), the chunk range and the device before they touch a kernel;
+    meta tensors reach those checks with no card."""
+    xt = torch.empty(x, dtype=dt, device="meta")
+    f32 = torch.empty(x[:3], device="meta")
+    Bm = torch.empty(B, dtype=torch.bfloat16, device="meta")
+    Bt, S, H, P = x
+    h_ins = torch.empty(Bt, max(1, S // chunk), H, P, B[3], device="meta")
+    D = torch.empty(H, device="meta")
+    before = dict(LAUNCHES)
+    with pytest.raises((ValueError, TypeError), match=error):
+        if kernel == "ssd_chunk_state":
+            ssd_chunk_state(xt, f32, D, Bm, chunk=chunk)
+        else:
+            ssd_chunk_scan(xt, f32, f32, Bm, Bm, D, h_ins, chunk=chunk)
+    assert dict(LAUNCHES) == before
+
+
+@pytest.mark.parametrize("what,error", [
+    ("chunk_in", "chunk_in must be"),
+    ("cum", "shapes do not match"),
+    ("chunk", "shapes do not match"),
+    ("h0", "h0 must be"),
+    ("dtype", "float32"),
+    ("device", "CUDA device"),
+])
+def test_state_pass_wrapper_checks_before_launching(what, error):
+    Bt, nc, H, P, N, chunk = 2, 3, 4, 16, 16, 8
+    shapes = {"chunk_in": (Bt, nc, H, P, N), "cum": (Bt, nc * chunk, H),
+              "h0": (Bt, H, P, N)}
+    if what in ("chunk_in", "cum", "h0"):
+        shapes[what] = shapes[what][:-1] + (shapes[what][-1] + 1,)
+    if what == "chunk_in":
+        shapes["chunk_in"] = shapes["chunk_in"][1:]
+    t = {k: torch.empty(v, device="meta", dtype=torch.bfloat16
+                        if what == "dtype" and k == "h0" else torch.float32)
+         for k, v in shapes.items()}
+    before = dict(LAUNCHES)
+    with pytest.raises((ValueError, TypeError), match=error):
+        ssd_state_pass(t["chunk_in"], t["cum"], t["h0"],
+                       chunk=chunk + 1 if what == "chunk" else chunk)
+    assert dict(LAUNCHES) == before
+
+
+@pytest.mark.parametrize("A,dtype", [((3,), torch.float32), ((2,), torch.bfloat16)])
+def test_state_wrapper_checks_A(A, dtype):
+    """``ssd_chunk_state`` also makes the cumsum of A.dt: A is (H,) f32."""
+    x = torch.empty(1, 64, 2, 16, dtype=torch.bfloat16, device="meta")
+    dt = torch.empty(1, 64, 2, device="meta")
+    B = torch.empty(1, 64, 1, 16, dtype=torch.bfloat16, device="meta")
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="A must be"):
+        ssd_chunk_state(x, dt, torch.empty(A, dtype=dtype, device="meta"), B,
+                        chunk=16)
+    assert dict(LAUNCHES) == before
+
+
+@pytest.mark.parametrize("impl", ["auto", "reference", "sequential"])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_ssd_refuses_an_unsupported_dtype(impl, dtype):
+    _, t = _inputs(0, 1, 16, 2, 16, 1, 16, "float32")
+    t["x"] = t["x"].to(dtype)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd(*_args(t), chunk=8, impl=impl)
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk", GRID + [(1, 48, 4, 16, 2, 16, 24)])
+def test_bf16_path_on_the_cpu_is_the_chunked_reference(Bt, S, H, P, G, N, chunk,
+                                                       h0):
+    """On CPU tensors the bf16 path's three wrappers compute their plain
+    versions (``chunk_state_ref``, ``pass_states``, ``chunk_scan_ref``),
+    which together are ``ssd_chunked_ref`` to the bit."""
+    _, t = _inputs(S + N, Bt, S, H, P, G, N, "bfloat16")
+    h = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(Bt, H, P, N)).astype(np.float32)) if h0 else None
+    y, hf = ssd(*_args(t), chunk=chunk, h0=h)
+    y_ref, hf_ref = ssd(*_args(t), chunk=chunk, h0=h, impl="reference")
+    assert y.dtype == torch.bfloat16 and torch.equal(y, y_ref)
+    assert torch.equal(hf, hf_ref)
+    pad = (-S) % chunk
+    if not pad:  # each wrapper against its plain version
+        x, dt, A, B, C, D = _args(t)
+        cum = chunk_cumsum(dt, A, chunk)
+        cin, cum_k = ssd_chunk_state(x, dt, A, B, chunk=chunk)
+        assert torch.equal(cum_k, cum)
+        assert torch.equal(cin, chunk_state_ref(x, dt, cum, B, chunk=chunk))
+        h_ins, h_fin = ssd_state_pass(cin, cum, h, chunk=chunk)
+        decay = torch.exp(cum[:, chunk - 1::chunk])
+        for got, ref in zip((h_ins, h_fin), pass_states(cin, decay, h)):
+            assert torch.equal(got, ref)
+        assert torch.equal(ssd_chunk_scan(x, dt, cum, B, C, D, h_ins, chunk=chunk),
+                           chunk_scan_ref(x, dt, cum, B, C, D, h_ins, chunk=chunk))
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _parts(v, split: bool):
+    """v as the kernels feed it to the tensor cores: hi = bf16(v) and
+    lo = bf16(v - hi), or hi alone (single rounding)."""
+    hi = _bf16(v)
+    return (hi, _bf16(v - hi)) if split else (hi,)
+
+
+def _emulate(x, dt, A, B, C, D, chunk, h0=None, split=True):
+    """The bf16 tensor-core path's arithmetic (``csrc/ssd_bf16.cu``) in
+    PyTorch: bf16 operands, exact products, f32 sums; the three f32 operands
+    (the scores, x.w of chunk_in and h_in of the carry) as hi + lo, or
+    rounded to bf16 once with ``split=False``.  S % chunk == 0."""
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2:]
+    R, nc, Q = H // G, S // chunk, chunk
+    dtf = dt.float()
+    cum = chunk_cumsum(dtf, A, chunk)
+    xf = x.float().reshape(Bt, nc, Q, H, P)
+    Bf = B.float().reshape(Bt, nc, Q, G, N)
+    Cf = C.float().reshape(Bt, nc, Q, G, N)
+    cumf, dtr = cum.reshape(Bt, nc, Q, H), dtf.reshape(Bt, nc, Q, H)
+    # ssd_chunk_state
+    xw = xf * (dtr * torch.exp(cumf[:, :, -1:] - cumf))[..., None]
+    chunk_in = sum(torch.einsum("bckgrp,bckgn->bcgrpn",
+                                v.reshape(Bt, nc, Q, G, R, P), Bf)
+                   for v in _parts(xw, split)).reshape(Bt, nc, H, P, N)
+    # ssd_state_pass
+    h_ins, h_final = pass_states(chunk_in, torch.exp(cum[:, chunk - 1::chunk]),
+                                 h0)
+    # ssd_chunk_scan
+    cb = torch.einsum("bcqgn,bckgn->bcgqk", Cf, Bf)
+    cum_h = cumf.permute(0, 1, 3, 2)
+    diff = cum_h[..., :, None] - cum_h[..., None, :]
+    mask = torch.ones(Q, Q, dtype=torch.bool).tril()
+    L = torch.exp(torch.where(mask, diff, float("-inf")))
+    scores = (L.reshape(Bt, nc, G, R, Q, Q) * cb[:, :, :, None]).reshape(
+        Bt, nc, H, Q, Q) * dtr.permute(0, 1, 3, 2)[..., None, :]
+    y_intra = sum(torch.matmul(v, xf.permute(0, 1, 3, 2, 4))
+                  for v in _parts(scores, split)).permute(0, 1, 3, 2, 4)
+    carry = sum(torch.einsum("bcqgn,bcgrpn->bcqgrp", Cf,
+                             v.reshape(Bt, nc, G, R, P, N))
+                for v in _parts(h_ins, split)).reshape(Bt, nc, Q, H, P)
+    y = (carry * torch.exp(cumf)[..., None] + y_intra).reshape(Bt, S, H, P)
+    return (y + x.float() * D[:, None]).to(x.dtype), h_final
+
+
+def _excess(got, ref, tol):
+    """max of |got - ref| - (tol + tol |ref|): <= 0 within the gate."""
+    got, ref = _np(got), _np(ref)
+    return float((np.abs(got - ref) - tol - tol * np.abs(ref)).max())
+
+
+EMULATED = [  # (Bt, S, H, P, G, N, chunk)
+    (2, 128, 4, 16, 1, 32, 32),
+    (1, 128, 4, 16, 2, 16, 32),
+    (1, 96, 4, 32, 1, 16, 24),
+]
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk", EMULATED)
+def test_emulated_split_rounding_meets_the_gates(Bt, S, H, P, G, N, chunk):
+    """The kernels' hi + lo rounding, with the model's A, against the plain
+    path and against the JAX package's ``ssd`` (its Pallas kernel in
+    interpret mode): y within one bf16 step, h_final within 2e-4."""
+    A = -np.linspace(1.0, 16.0, H)
+    j, t = _inputs(S + P, Bt, S, H, P, G, N, "bfloat16", A=A)
+    h0 = np.random.default_rng(3).normal(size=(Bt, H, P, N)).astype(np.float32)
+    y, h = _emulate(*_args(t), chunk, h0=torch.from_numpy(h0))
+    y_ref, h_ref = ssd_chunked_ref(*_args(t), chunk=chunk, h0=torch.from_numpy(h0))
+    y_pal, h_pal = jax_ssd(*_args(j), chunk=chunk, h0=jnp.asarray(h0),
+                           impl="pallas", interpret=True)
+    for yr, hr in ((y_ref, h_ref), (y_pal, h_pal)):
+        assert _excess(y, yr, 8e-3) <= 0
+        assert _excess(h, hr, 2e-4) <= 0
+
+
+def test_the_split_is_needed_at_the_serving_widths():
+    """Why the kernels split each f32 operand into hi + lo: at mamba2-780m's
+    P, N and chunk (4 heads, the model's A), the split meets both gates, and
+    the same arithmetic with each f32 operand rounded to bf16 once moves y
+    past one bf16 step and h_final past 2e-4 (both in any one case)."""
+    Bt, S, H, P, G, N, chunk = 1, 256, 4, 64, 1, 128, 256
+    _, t = _inputs(1, Bt, S, H, P, G, N, "bfloat16", A=-np.linspace(1.0, 16.0, H))
+    y_ref, h_ref = ssd_chunked_ref(*_args(t), chunk=chunk)
+    y, h = _emulate(*_args(t), chunk)
+    assert _excess(y, y_ref, 8e-3) <= 0 and _excess(h, h_ref, 2e-4) <= 0
+    y1, h1 = _emulate(*_args(t), chunk, split=False)
+    assert _excess(y1, y_ref, 8e-3) > 0 and _excess(h1, h_ref, 2e-4) > 0
