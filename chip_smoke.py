@@ -7,7 +7,8 @@ Phases; any that fails ends the run with a non-zero exit:
   1. the card (``nvidia-smi`` name and power limit) and the build of every
      CUDA kernel from the checkout's sources (one nvcc per source, all
      started together), with nvcc's register, shared-memory and spill report;
-     the run fails if a bf16 (tensor-core) flash or SSD instantiation spills;
+     the run fails if a bf16 (tensor-core) flash or SSD instantiation, an
+     f32 flash instantiation or a flash backward instantiation spills;
   2. every kernel against its plain PyTorch version on the card:
      - flash_attn_fwd over the grid of ``tests/test_kernels.py`` plus a
        ragged length, a non-causal case, head_dim 256 (small, ragged and
@@ -32,13 +33,20 @@ Phases; any that fails ends the run with a non-zero exit:
        ``tests/test_kernels.py``, a ragged length, h0 None and
        recurrentgemma-2b's serving shape with the model's kind of decay, a
        and u in f32 and in bf16, both outputs (f32 1e-5, bf16 h_seq 8e-3);
+     - the flash backward's kernels (flash_attn_bwd_pre, _dkdv, _dq) against
+       ``attention_bwd_ref`` over flash_attn_fwd's grid plus qwen3-0.6b's
+       training shape, f32 and bf16 (dq, dk, dv 1e-4 and 2e-2; D 1e-5), and
+       the forward's log-sum-exp against ``lse_ref`` (1e-5);
   3. each kernel's time at its serving shape beside its plain version, one
      PyTorch library call computing the same function where there is one (a
      yardstick the port never calls) and the least time the card could take;
      for flash_attn_fwd also the registers, local and shared bytes of the
      bf16 kernel; for the bf16 SSD path each kernel, the whole ``ops.ssd``
      beside the path it replaced (ssd_chunk and its PyTorch glue) and
-     ``ssd_chunked_ref``, with the whole function's bound;
+     ``ssd_chunked_ref``, with the whole function's bound; for the flash
+     backward each kernel, their sum, ``attention_bwd_ref`` and SDPA's
+     backward (the yardstick) at the training shape, and the forward with
+     and without its log-sum-exp;
   4. the main paths, each with the launch counts set to 0 just before it and
      read just after: ``repro_torch.launch.serve`` serves 8 requests of
      full-width qwen3-0.6b, then of full-width mamba2-780m, then of
@@ -49,7 +57,15 @@ Phases; any that fails ends the run with a non-zero exit:
      layer's SSD output, and for recurrentgemma-2b every layer's RG-LRU scan
      and attention output, on the plain path's bf16 activations, then the
      logits of one prefill in f32 compute (their bf16 logits are printed
-     beside the plain path's own spread, not gated);
+     beside the plain path's own spread, not gated); then
+     ``repro_torch.launch.train`` trains full-width qwen3-0.6b (batch 4 x
+     2048, random weights) for a few steps, each step with 56 flash_attn_fwd
+     launches (28 layers, and 28 again in the rematerialised recompute) and
+     28 of each backward kernel, finite losses, then a checkpoint and a
+     resume that starts at the saved step; kernel against plain in the
+     model: one step's loss and every gradient leaf in f32 compute (gated),
+     every layer's attention backward in bf16 (gated) and the bf16
+     gradients end to end (printed, not gated);
   5. a JSON line per the kernel table, then the last line
      ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -132,6 +148,12 @@ PATHS = {
 }
 
 
+def train_argv(steps: int, *extra: str) -> list:
+    return ["--arch", "qwen3-0.6b", "--no-reduced", "--batch", str(BATCH),
+            "--seq", str(PROMPT), "--steps", str(steps), "--log-every", "1",
+            *extra]
+
+
 def serve_argv(arch: str) -> list:
     return ["--arch", arch, "--no-reduced", "--requests", "8", "--batch",
             str(BATCH), "--prompt-len", str(PROMPT), "--max-new", "32"]
@@ -210,6 +232,40 @@ RGLRU_GRID = [
     (1, 37, 5, False, False),
 ]
 RGLRU_SERVE = (4, 2048, 2560, False, True)  # recurrentgemma-2b prefill scan
+# The flash backward (flash_attn_bwd_pre, _dkdv, _dq) against
+# attention_bwd_ref from the same q, k, v, o, L and dO, abs + rel:
+# - f32: 1e-4 on dq, dk and dv: both sides compute in f32 from the same
+#   inputs, but a gradient sums up to S (dq) or G·S (dk, dv) terms, taken in
+#   another order;
+# - bf16: 2e-2, tests/test_kernels.py::_tol's bf16 attention bound: both
+#   sides compute in f32 from the same bf16 inputs and round each output to
+#   bf16 once (one step, 2**-8 relative), and the tensor-core kernels (hd 16
+#   and 64) also round P and dS to bf16 as operands of their products: a
+#   relative 2**-8 on each term of sums whose errors are of random sign;
+# - D = rowsum(dO o O), f32 from the same inputs on both sides: 1e-5.
+# The forward's log-sum-exp against lse_ref: 1e-5 (f32 sums of the same
+# scores in another order, and the bf16 kernel's ex2.approx).
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+D_TOL = 1e-5
+LSE_TOL = 1e-5
+BWD_KERNEL_NAMES = ("flash_attn_bwd_pre", "flash_attn_bwd_dkdv",
+                    "flash_attn_bwd_dq")
+TRAIN_SHAPE = (4, 2048, 16, 8, 64, None, True)  # qwen3-0.6b training attention
+TRAIN_STEPS = 4
+# Launches per training step of qwen3-0.6b: each of 28 layers runs the
+# forward kernel twice (the step's forward and the recompute of its
+# rematerialised superblock in the backward) and each backward kernel once.
+TRAIN_LAUNCHES = {"flash_attn_fwd": 56, "flash_attn_bwd_pre": 28,
+                  "flash_attn_bwd_dkdv": 28, "flash_attn_bwd_dq": 28}
+# One training step's loss and gradients, kernel path against the plain
+# path (impl="reference": autograd through attention_chunked), in f32
+# compute from the same weights and batch.  The paths differ only in the
+# order of f32 sums inside attention (relative ~1e-7, phase 2), which the
+# 28 layers carry into every gradient; the gate starts from the f32 logits
+# gate's 2e-3, taken relative to each leaf's largest gradient (gradients
+# have no unit scale), and the plain path's own spread under one f32 ulp of
+# noise in its attention output is printed beside it.
+GRAD_RTOL = 2e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -247,11 +303,21 @@ def spill_gate(logs: dict) -> None:
     bytes of spill stores and loads in ptxas's report: the flash kernel's,
     one per head_dim its wrapper takes, and the SSD path's, ssd_chunk_state
     and ssd_chunk_scan at each (P, N) their wrappers take and
-    ssd_state_pass."""
+    ssd_state_pass; and the same of the f32 flash kernel and of the flash
+    backward's three kernels, one per head_dim and type."""
     import re
-    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+    from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
+                                                            TC_BWD_HEAD_DIMS)
     from repro_torch.kernels.ssd_scan.kernel import PN_PAIRS
-    wanted = (("flash_attn_fwd", "flash_attn_fwd_tc_kernel", len(HEAD_DIMS)),
+    n_tc = len(TC_BWD_HEAD_DIMS)
+    # the tensor-core forward once without L (served) and once with it
+    wanted = (("flash_attn_fwd", "flash_attn_fwd_tc_kernel", 2 * len(HEAD_DIMS)),
+              ("flash_attn_fwd", "flash_attn_fwd_simt_kernel", len(HEAD_DIMS)),
+              ("flash_attn_bwd", "flash_attn_bwd_pre_kernel", 2 * len(HEAD_DIMS)),
+              *(("flash_attn_bwd", f"flash_attn_bwd_{name}_kernel",
+                 2 * len(HEAD_DIMS) - n_tc) for name in ("dkdv", "dq")),
+              *(("flash_attn_bwd", f"flash_attn_bwd_{name}_tc_kernel", n_tc)
+                for name in ("dkdv", "dq")),
               ("ssd_bf16", "ssd_chunk_state_kernel", len(PN_PAIRS)),
               ("ssd_bf16", "ssd_chunk_scan_kernel", len(PN_PAIRS)),
               ("ssd_bf16", "ssd_state_pass_kernel", 1))
@@ -263,7 +329,7 @@ def spill_gate(logs: dict) -> None:
             found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                               ln)
             check(found is not None and found.groups() == ("0", "0"),
-                  f"a bf16 instantiation spills or was not reported: {ln}")
+                  f"an instantiation spills or was not reported: {ln}")
 
 
 def qkv(shape, dtype, device, seed):
@@ -590,16 +656,22 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(shape, dtype_bytes: int, peak_flops: float) -> tuple:
-    """Least time for this run's attention: each of q, k, v, o moved once,
-    4 * hd flops per (query, key) pair the masks keep."""
+def visible_pairs(shape) -> int:
+    """(query, key) pairs of one (batch, head) that the masks keep."""
     B, S, H, KH, hd, window, causal = shape
     pairs = 0
     for i in range(S):
         lo = max(0, i - window + 1) if window else 0
         hi = i + 1 if causal else S
         pairs += hi - lo
-    flops = 4 * hd * B * H * pairs
+    return pairs
+
+
+def attention_bound_ms(shape, dtype_bytes: int, peak_flops: float) -> tuple:
+    """Least time for this run's attention: each of q, k, v, o moved once,
+    4 * hd flops per (query, key) pair the masks keep."""
+    B, S, H, KH, hd, window, causal = shape
+    flops = 4 * hd * B * H * visible_pairs(shape)
     nbytes = dtype_bytes * (2 * B * S * H * hd + 2 * B * S * KH * hd)
     return bound(nbytes, flops, peak_flops)
 
@@ -708,6 +780,343 @@ def rglru_timing(device) -> dict:
           "call computes it: library_ms null): "
           + ", ".join(f"{k} {v}" for k, v in out.items()))
     return out
+
+
+def bwd_kernel_vs_plain(device) -> dict:
+    """Phase 2 for the flash backward: the forward's log-sum-exp against
+    ``lse_ref``, then each backward kernel against its plain version from
+    the same q, k, v, o, L and dO (D against rowsum(dO o O), dq, dk and dv
+    against ``attention_bwd_ref``), over flash_attn_fwd's grid and the
+    training shape, f32 and bf16.  Returns the max abs errors at the
+    training shape in bf16 (the main path's case)."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import (BWD_KERNELS,
+                                                            bwd_buffers,
+                                                            flash_attention_fwd,
+                                                            launch_bwd)
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         lse_ref)
+    check(BWD_KERNELS == BWD_KERNEL_NAMES, f"backward kernels {BWD_KERNELS}")
+    errs = {}
+    for i, shape in enumerate(GRID + GRID_HD256 + [TRAIN_SHAPE]):
+        for name in ("float32", "bfloat16"):
+            dtype = getattr(torch, name)
+            q, k, v = qkv(shape, dtype, device, seed=400 + i)
+            do = torch.randn(q.shape, generator=torch.Generator(device)
+                             .manual_seed(500 + i), device=device).to(dtype)
+            B, S, H, KH, hd, window, causal = shape
+            o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                         return_lse=True)
+            bufs = bwd_buffers(q, k, v, o, lse, do, window=window)
+            for kernel in BWD_KERNELS:
+                launch_bwd(kernel, bufs, causal=causal, window=window)
+            torch.cuda.synchronize(device)
+            ref = dict(zip(("dq", "dk", "dv"), attention_bwd_ref(
+                q, k, v, o, lse, do, causal=causal, window=window)))
+            ref["delta"] = (do.float() * o.float()).sum(-1).transpose(1, 2)
+            ref["lse"] = lse_ref(q, k, causal=causal, window=window)
+            line = []
+            for what in ("lse", "delta", "dq", "dk", "dv"):
+                tol = {"lse": LSE_TOL, "delta": D_TOL}.get(what, BWD_TOL[name])
+                got = bufs[what]
+                check(got.dtype == ref[what].dtype and got.shape == ref[what].shape
+                      and bool(torch.isfinite(got).all()), f"bad backward {what}")
+                e, excess = excess_error(got, ref[what], tol)
+                check(excess <= 0, f"flash backward {what} disagrees with plain "
+                      f"at {shape} {name}: max|err| {e:.3e} (tol {tol:g})")
+                errs[what] = e
+                line.append(f"{what} {e:.3e}")
+            print(f"[kernel] flash backward {name} B={B} S={S} H={H} KH={KH} "
+                  f"hd={hd} window={window} causal={causal}: max|err| "
+                  + ", ".join(line) + f" (tol L {LSE_TOL:g}, D {D_TOL:g}, "
+                  f"gradients {BWD_TOL[name]:g}, abs + rel)")
+    return {"lse": errs["lse"], "flash_attn_bwd_pre": errs["delta"],
+            "flash_attn_bwd_dkdv": max(errs["dk"], errs["dv"]),
+            "flash_attn_bwd_dq": errs["dq"]}
+
+
+def attention_bwd_bounds(shape) -> dict:
+    """Least ms of each backward kernel and of the whole backward at a bf16
+    ``shape``: each input read once, each output written once; the
+    products each needs (one product: 2 hd flops a visible pair), at the
+    bf16 tensor-core rate: dK and dV need S, dP, dV and dK (4), dQ needs S,
+    dP and dQ (3), the whole gradient 5."""
+    B, S, H, KH, hd, window, causal = shape
+    prod = 2 * hd * B * H * visible_pairs(shape)
+    qb, kvb, rowb = 2 * B * S * H * hd, 2 * B * S * KH * hd, 4 * B * H * S
+    return {
+        "flash_attn_bwd_pre": bound(2 * qb + rowb, 2 * B * S * H * hd),
+        "flash_attn_bwd_dkdv": bound(2 * qb + 4 * kvb + 2 * rowb, 4 * prod),
+        "flash_attn_bwd_dq": bound(3 * qb + 2 * kvb + 2 * rowb, 3 * prod),
+        # q, k, v, o, dO and L read, dq, dk and dv written
+        "whole": bound(4 * qb + 4 * kvb + rowb, 5 * prod),
+    }
+
+
+def bwd_timing(device) -> dict:
+    """Phase 3 for the flash backward at the training shape (bf16, causal):
+    each kernel with its bound, registers and shared memory; plain_ms of
+    flash_attn_bwd_pre is rowsum(dO o O) in PyTorch, of the other two
+    ``attention_bwd_ref``, which computes dq, dk and dv together; no single
+    PyTorch call computes one kernel's part (library_ms null).  Then the
+    whole backward (``flash_attention_bwd``) beside the sum of its kernels,
+    ``attention_bwd_ref`` and SDPA's backward alone (its forward run once,
+    K/V by ``enable_gqa``), the yardstick the port never calls; and the
+    forward with and without its log-sum-exp."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (
+        BWD_KERNELS, bwd_attributes, bwd_buffers, flash_attention_bwd,
+        flash_attention_fwd, launch_bwd)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    B, S, H, KH, hd, window, causal = TRAIN_SHAPE
+    q, k, v = qkv(TRAIN_SHAPE, torch.bfloat16, device, seed=97)
+    do = torch.randn(q.shape, generator=torch.Generator(device).manual_seed(96),
+                     device=device).to(torch.bfloat16)
+    o, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    bufs = bwd_buffers(q, k, v, o, lse, do)
+    bounds = attention_bwd_bounds(TRAIN_SHAPE)
+    plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do), 3,
+                       warmup=1)
+    out = {}
+    for name in BWD_KERNELS:
+        out[name] = {
+            "ms": time_ms(lambda: launch_bwd(name, bufs, causal=True,
+                                             window=None), 20),
+            "plain_ms": time_ms(lambda: (do.float() * o.float()).sum(-1), 20)
+            if name == "flash_attn_bwd_pre" else plain_ms,
+            "library_ms": None}
+        out[name]["bound_ms"], out[name]["bound_by"] = bounds[name]
+        out[name].update(bwd_attributes(name, hd, torch.bfloat16))
+        print(f"[timing] {name} at B={B} S={S} H={H} KH={KH} hd={hd} bf16 "
+              "causal: " + ", ".join(f"{k} {v}" for k, v in out[name].items()))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot = do.transpose(1, 2)
+    whole = {
+        "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do), 20),
+        "sum_ms": sum(out[name]["ms"] for name in BWD_KERNELS),
+        "plain_ms": plain_ms,
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True), 20),
+        "fwd_ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=True), 20),
+        "fwd_with_lse_ms": time_ms(lambda: flash_attention_fwd(
+            q, k, v, causal=True, return_lse=True), 20),
+    }
+    whole["bound_ms"], whole["bound_by"] = bounds["whole"]
+    print("[timing] whole flash backward at the same shape (ms; sum_ms: its "
+          "three kernels timed apart; plain_ms: attention_bwd_ref; library_ms: "
+          "SDPA's backward alone; fwd_ms and fwd_with_lse_ms: flash_attn_fwd "
+          "without and with its log-sum-exp): "
+          + ", ".join(f"{k} {v}" for k, v in whole.items()))
+    for name in ("flash_attn_bwd_dkdv", "flash_attn_bwd_dq"):
+        out[name]["whole_backward"] = whole
+    return out
+
+
+def train_and_check(device) -> dict:
+    """Phase 4 for training: ``repro_torch.launch.train`` on full-width
+    qwen3-0.6b, its launches per step (``TRAIN_LAUNCHES``, nothing else),
+    finite losses, then a checkpoint at step 2 and a resume that starts
+    there.  Returns the run's numbers and launch counts."""
+    import math
+    import tempfile
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import train
+
+    LAUNCHES.clear()
+    stats = train.main(train_argv(TRAIN_STEPS))
+    launches = dict(LAUNCHES)
+    del stats["state"]
+    check(stats["arch"] == "qwen3-0.6b", "train did not run the full-width config")
+    for i, per_step in enumerate(stats["launches"]):
+        check(per_step == TRAIN_LAUNCHES, f"training step {i + 1} launched "
+              f"{per_step}, expected {TRAIN_LAUNCHES}")
+    check(launches == {k: n * TRAIN_STEPS for k, n in TRAIN_LAUNCHES.items()},
+          f"training launched {launches}")
+    check(len(stats["losses"]) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in stats["losses"]),
+          f"training losses {stats['losses']}")
+    stats["tokens_per_s"] = [stats["tokens_per_step"] / (ms / 1e3)
+                             for ms in stats["step_ms"]]
+    print("[train] " + json.dumps(stats))
+    print(f"[train] launches per step: {stats['launches'][0]}; step ms "
+          f"{stats['step_ms']}, tokens/s {stats['tokens_per_s']}, peak memory "
+          f"{stats['max_memory_allocated']} bytes")
+    with tempfile.TemporaryDirectory() as ckpt:
+        first = train.main(train_argv(2, "--checkpoint-dir", ckpt,
+                                      "--checkpoint-every", "1000"))
+        del first["state"]
+        resumed = train.main(train_argv(3, "--checkpoint-dir", ckpt))
+        del resumed["state"]
+    check(resumed["start_step"] == 2 and len(resumed["losses"]) == 1
+          and math.isfinite(resumed["losses"][0]),
+          f"the resumed run started at {resumed['start_step']} with losses "
+          f"{resumed['losses']}")
+    print(f"[train] checkpoint at step 2 and resume: the resumed run starts at "
+          f"step {resumed['start_step']}; its loss {resumed['losses'][0]:.6f}, "
+          f"the uninterrupted run's at that step {stats['losses'][2]:.6f}")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "stats": stats}
+
+
+def train_grads(cfg, params, batch, impl: str):
+    """One training step's loss and gradient leaves, by flat key."""
+    import torch
+    from repro_torch.models.lm import forward
+    from repro_torch.models.params import flatten
+    from repro_torch.models.steps import chunked_ce_loss
+    flat = flatten(params)
+    h, _ = forward(params, cfg, batch["tokens"], mode="train", impl=impl)
+    loss = chunked_ce_loss(params, h, batch["labels"], cfg)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    return loss.item(), dict(zip(flat, grads))
+
+
+def worst_leaf(got: dict, ref: dict) -> tuple:
+    """max over leaves of max|got - ref| / max|ref|, and that leaf."""
+    ratios = {k: ((got[k] - ref[k]).abs().max()
+                  / ref[k].abs().max().clamp_min(1e-30)).item() for k in ref}
+    key = max(ratios, key=ratios.get)
+    return ratios[key], key
+
+
+@contextlib.contextmanager
+def ulp_noise_in_attention():
+    """The plain path with one f32 ulp of relative noise in each attention
+    output: a deterministic function of the output, so the rematerialised
+    recompute sees the same noise as the forward."""
+    import torch
+    from repro_torch.models import layers
+    plain = layers.flash_attention
+
+    def noisy(*args, **kwargs):
+        o = plain(*args, **kwargs)
+        return o * (1 + 2 ** -23 * torch.sin(1e4 * o.detach()))
+
+    layers.flash_attention = noisy
+    try:
+        yield
+    finally:
+        layers.flash_attention = plain
+
+
+def bf16_layer_grad_parity(cfg, params, batch) -> int:
+    """Every layer's attention backward in bf16 compute, kernel against
+    plain: a training step along the plain path whose attention, in the
+    backward, also runs the forward kernel and the backward kernels on that
+    layer's q, k, v and dO and compares their gradients with autograd
+    through the plain attention, at the bf16 kernel tolerance.  The
+    backward is linear in dO, so both take dO scaled to a largest |dO| of
+    1, where an absolute tolerance means something.  Returns the number of
+    layers compared."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
+                                                            flash_attention_fwd)
+    from repro_torch.models import layers
+    plain = layers.flash_attention
+    worst, seen = {"dq": 0.0, "dk": 0.0, "dv": 0.0}, []
+
+    class Both(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window):
+            ctx.save_for_backward(q, k, v)
+            ctx.causal, ctx.window = causal, window
+            return plain(q, k, v, causal=causal, window=window, impl="reference")
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v = ctx.saved_tensors
+            mask = dict(causal=ctx.causal, window=ctx.window)
+            unit = (do.float() / do.float().abs().max().clamp_min(1e-30)).to(do.dtype)
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                o = plain(*leaves, impl="reference", **mask)
+                ref = torch.autograd.grad(o, leaves, unit, retain_graph=True)
+                grads = torch.autograd.grad(o, leaves, do)
+            o_k, lse = flash_attention_fwd(q, k, v, return_lse=True, **mask)
+            got = flash_attention_bwd(q, k, v, o_k, lse, unit.contiguous(), **mask)
+            for what, g, r in zip(("dq", "dk", "dv"), got, ref):
+                err, excess = excess_error(g, r, BWD_TOL["bfloat16"])
+                check(g.dtype == r.dtype and bool(torch.isfinite(g).all())
+                      and excess <= 0, f"layer {len(seen)}: attention {what} "
+                      f"of the kernels disagrees with plain (max|err| {err:.3e})")
+                worst[what] = max(worst[what], err)
+            seen.append(q.dtype)
+            return (*grads, None, None)
+
+    def both(q, k, v, *, causal, window, impl):
+        return Both.apply(q, k, v, causal, window)
+
+    layers.flash_attention = both
+    try:
+        train_grads(cfg, params, batch, "reference")
+    finally:
+        layers.flash_attention = plain
+    check(seen == [torch.bfloat16] * cfg.n_layers,
+          f"expected {cfg.n_layers} bf16 attention backwards, saw {seen}")
+    print(f"[parity] {cfg.name} every layer's attention backward in bf16, "
+          f"kernels vs autograd through the plain attention on the plain "
+          f"path's activations ({len(seen)} layers, dO at unit scale): "
+          f"max|err| dq {worst['dq']:.3e}, dk {worst['dk']:.3e}, dv "
+          f"{worst['dv']:.3e} (tol {BWD_TOL['bfloat16']:g} abs + rel)")
+    return len(seen)
+
+
+def grad_parity(device) -> dict:
+    """Kernel against plain in the model at full width: one training step
+    of qwen3-0.6b from the same weights and batch, in f32 compute (loss and
+    every gradient leaf gated at GRAD_RTOL of the leaf's largest |grad|,
+    the plain path's spread under one f32 ulp printed beside it), then every
+    layer's attention backward in bf16 (gated), then the bf16 gradients end
+    to end (printed, not gated).  Returns the f32-compute run's launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import SyntheticTokens, shard_batch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models.lm import init_params
+
+    cfg = ARCHS["qwen3-0.6b"]
+    params = init_params(cfg, torch.Generator(device).manual_seed(0),
+                         trainable=True).tree()
+    batch = shard_batch(SyntheticTokens(cfg.vocab, BATCH, PROMPT).next_batch(),
+                        device)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    LAUNCHES.clear()
+    loss_k, g_k = train_grads(cfg32, params, batch, "auto")
+    launches = dict(LAUNCHES)
+    loss_p, g_p = train_grads(cfg32, params, batch, "reference")
+    with ulp_noise_in_attention():
+        loss_n, g_n = train_grads(cfg32, params, batch, "reference")
+    check(launches == TRAIN_LAUNCHES, f"f32-compute step launched {launches}")
+    check(all(bool(torch.isfinite(g).all()) for g in g_k.values()),
+          "f32-compute gradients of the kernel path are not finite")
+    worst, key = worst_leaf(g_k, g_p)
+    floor, floor_key = worst_leaf(g_n, g_p)
+    print(f"[parity] {cfg.name} float32 full-width training step, kernels vs "
+          f"plain: loss {loss_k:.7f} vs {loss_p:.7f} (|diff| "
+          f"{abs(loss_k - loss_p):.3e}); gradients, max over {len(g_p)} leaves "
+          f"of max|diff| / max|grad|: {worst:.3e} at {key} (tol {GRAD_RTOL:g}); "
+          f"plain vs plain with one f32 ulp of noise in its attention output "
+          f"{floor:.3e} at {floor_key} (loss |diff| {abs(loss_n - loss_p):.3e})")
+    check(abs(loss_k - loss_p) <= GRAD_RTOL * abs(loss_p),
+          "f32-compute losses of the kernel and plain paths disagree")
+    check(worst <= GRAD_RTOL, "f32-compute gradients of the kernel and plain "
+          "paths disagree")
+    del g_k, g_p, g_n
+    bf16_layer_grad_parity(cfg, params, batch)
+    loss_k, g_k = train_grads(cfg, params, batch, "auto")
+    loss_p, g_p = train_grads(cfg, params, batch, "reference")
+    worst, key = worst_leaf(g_k, g_p)
+    print(f"[parity] {cfg.name} bfloat16 full-width training step, kernels vs "
+          f"plain (not gated): loss {loss_k:.7f} vs {loss_p:.7f}; gradients, "
+          f"max over leaves of max|diff| / max|grad|: {worst:.3e} at {key}")
+    del g_k, g_p, params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def serve_and_check(device, arch: str) -> dict:
@@ -938,7 +1347,12 @@ def main() -> int:
     ssd_time = ssd_timing(device)
     ssd_bf16_time = ssd_bf16_timing(device)
     rglru_time = rglru_timing(device)
+    bwd_errs = bwd_kernel_vs_plain(device)
+    bwd_time = bwd_timing(device)
     launches = {arch: serve_and_check(device, arch) for arch in PATHS}
+    trained = train_and_check(device)
+    launches["qwen3-0.6b training"] = trained["launches"]
+    launches["qwen3-0.6b training"]["f32 compute"] = grad_parity(device)
 
     flash_shapes = [
         {"shape": list(shape), "path": arch,
@@ -946,6 +1360,32 @@ def main() -> int:
          "max_abs_err": errs[shape], **timings[shape]}
         for shape, arch in ((SERVE_SHAPE, "qwen3-0.6b"),
                             (RG_SERVE_SHAPE, "recurrentgemma-2b"))]
+    flash_shapes.append({
+        "shape": list(TRAIN_SHAPE), "path": "qwen3-0.6b training",
+        "launches": launches["qwen3-0.6b training"]["flash_attn_fwd"],
+        "ms_with_lse": bwd_time["flash_attn_bwd_dq"]["whole_backward"][
+            "fwd_with_lse_ms"]})
+    flash_bwd = [{
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attn_bwd.cu",
+        # no TPU kernel computes a gradient: these are the gradient of the
+        # forward's TPU kernel
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
+        "note": "no TPU counterpart: the gradient of flash_attention_pallas",
+        "design": {
+            "flash_attn_bwd_pre": "D = rowsum(dO o O), a warp a row",
+            "flash_attn_bwd_dkdv": "a block per (batch x KV head, 64 keys) "
+                                   "walks the group's heads and query tiles, "
+                                   "dK and dV written once; bf16 at hd 16 and "
+                                   "64: tensor cores (mma.sync m16n8k16, "
+                                   "ldmatrix, two cp.async stages, P and dS "
+                                   "in registers); f32: CUDA cores",
+            "flash_attn_bwd_dq": "a block per (batch x head, 64 queries) walks "
+                                 "the key tiles; bf16 at hd 16 and 64: tensor "
+                                 "cores as dkdv; f32: CUDA cores"}[name],
+        "launches": launches["qwen3-0.6b training"].get(name, 0),
+        "max_abs_err": bwd_errs[name], **bwd_time[name]}
+        for name in BWD_KERNEL_NAMES]
     ssd_bf16 = [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_bf16.cu",
@@ -972,7 +1412,8 @@ def main() -> int:
         # over both paths that run it; times at qwen3-0.6b's shape, each
         # serving shape's own under "shapes"
         "launches": sum(n.get("flash_attn_fwd", 0) for n in launches.values()),
-        "max_abs_err": max(errs.values()), **timings[SERVE_SHAPE],
+        "max_abs_err": max(errs.values()), "lse_max_abs_err": bwd_errs["lse"],
+        **timings[SERVE_SHAPE],
         "shapes": flash_shapes}, {
         "name": "ssd_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_chunk.cu",
@@ -988,7 +1429,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:41",
         "launches": launches["recurrentgemma-2b"].get("rglru_scan", 0),
-        "max_abs_err": rglru_err, **rglru_time}]}))
+        "max_abs_err": rglru_err, **rglru_time}, *flash_bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": 1}}))  # the smoke drives cuda:0 alone

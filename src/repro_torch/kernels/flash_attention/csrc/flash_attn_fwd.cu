@@ -72,10 +72,19 @@
 // f32 inputs: `flash_attn_fwd_simt_kernel`, both products on the CUDA cores
 // in f32 with no rounding of P; its numerics are the yardstick of the f32
 // gates.  One block per (batch * head, query tile); four threads per query
-// row (sixteen at hd 256, to stay under 128 registers), each owning float4
-// chunks of head_dim interleaved across the lanes, so a K or V read from
-// shared memory is a conflict-free 16-byte load broadcast to the warp's
-// rows; K and V tiles of at most 4096 values staged as f32.
+// row (eight at hd 128 and sixteen at hd 256, so that a thread holds at
+// most four float4 chunks of q and of the accumulator and stays under 128
+// registers without spilling), each owning float4 chunks of head_dim
+// interleaved across the lanes, so a K or V read from shared memory is a
+// conflict-free 16-byte load broadcast to the warp's rows; K and V tiles of
+// at most 4096 values staged as f32.
+//
+// Both kernels also write, when the caller passes an `lse` buffer (the
+// training path's forward, for the backward kernels of flash_attn_bwd.cu),
+// the log-sum-exp of each row's scaled scores, L = m + log l, as f32 in
+// (B, H, S): the softmax is then P = exp(scale q.k - L).  Serving passes
+// null; the tensor-core kernel then runs an instantiation without the
+// write (WITH_LSE), so the served code is what it was without L.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,6 +95,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ bool key_visible(int qpos, int kpos, int S, int causal, int window) {
   bool ok = kpos < S;
@@ -99,7 +109,9 @@ __device__ __forceinline__ bool key_visible(int qpos, int kpos, int S, int causa
 
 constexpr int SIMT_THREADS = 256;
 // Threads per query row and query rows per block, by head_dim.
-template <int HD> __host__ __device__ constexpr int simt_lanes() { return HD == 256 ? 16 : 4; }
+template <int HD> __host__ __device__ constexpr int simt_lanes() {
+  return HD == 256 ? 16 : HD == 128 ? 8 : 4;
+}
 template <int HD> __host__ __device__ constexpr int simt_block_q() {
   return SIMT_THREADS / simt_lanes<HD>();
 }
@@ -109,7 +121,8 @@ template <int HD>
 __global__ void __launch_bounds__(SIMT_THREADS, 2)
 flash_attn_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int S, int H, int KH, float scale, int causal, int window) {
+                           float* __restrict__ lse, int S, int H, int KH, float scale,
+                           int causal, int window) {
   constexpr int LANES = simt_lanes<HD>();
   constexpr int BLOCK_Q = simt_block_q<HD>();
   constexpr int BK = HD > 64 ? 4096 / HD : 64;  // keys per shared-memory tile
@@ -213,6 +226,9 @@ flash_attn_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict_
 
   if (live) {
     const float denom = fmaxf(l, 1e-30f);
+    // m and l are the same in every lane of the row (the scores are reduced
+    // across its lanes); the scores were scaled with q
+    if (lse != nullptr && lane == 0) lse[((size_t)b * H + h) * S + qpos] = m + logf(denom);
 #pragma unroll
     for (int i = 0; i < MY4; ++i) {
       float* dst = o + q_off + 4 * (lane + LANES * i);
@@ -225,12 +241,13 @@ flash_attn_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict_
 }
 
 template <int HD>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                int KH, float scale, int causal, int window, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                int H, int KH, float scale, int causal, int window, cudaStream_t stream) {
   const dim3 grid(B * H, (S + simt_block_q<HD>() - 1) / simt_block_q<HD>());
   flash_attn_fwd_simt_kernel<HD><<<grid, SIMT_THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KH, scale, causal, window);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KH, scale, causal,
+      window);
   return (int)cudaGetLastError();
 }
 
@@ -252,98 +269,19 @@ template <int HD> __host__ __device__ constexpr int tc_smem_bytes() {
   return (TcConfig<HD>::BM + 4 * TcConfig<HD>::BN) * HD * 2;
 }
 
-// Byte offset of 16-byte chunk c of `row` in a tile whose rows are W chunks.
-// The chunk index is XORed with bits of the row so that the eight rows one
-// ldmatrix reads at one chunk column fall in eight distinct 16-byte bank
-// groups (W >= 8: row & 7; W = 2, hd 16, four rows share a 128-byte line).
-template <int W> __device__ __forceinline__ uint32_t swizzle(int row, int c) {
-  static_assert(W == 2 || W % 8 == 0, "rows of 2 or a multiple of 8 chunks");
-  const int x = W >= 8 ? (row & 7) : ((row >> 2) & 1);
-  return (uint32_t)(row * W + (c ^ x)) * 16u;
-}
-
-// Where one lane's ldmatrix reads fall in a swizzled tile.  Every read
-// takes eight rows row0 + r8 (+ 8 for half the lanes) at chunk c0 (+ 1 for
-// half the lanes), with row0 a multiple of 16 and c0 even; the row bits that
-// the swizzle XORs are the lane's own, so a read's offset is one of four lane
-// terms (by c0 % 8) plus a constant, and a thread keeps four registers for
-// all its reads of one pattern rather than one per read.
-template <int W> struct LaneReads {
-  uint32_t off[4];
-  __device__ __forceinline__ LaneReads(int r8, int row_bit, int chunk_bit) {
-    const int x = W >= 8 ? r8 : ((r8 >> 2) & 1);
-#pragma unroll
-    for (int ph = 0; ph < 4; ++ph)
-      off[ph] = (uint32_t)((r8 + 8 * row_bit) * W + ((2 * ph) ^ chunk_bit ^ x)) * 16u;
-  }
-  // = swizzle<W>(row0 + r8 + 8 row_bit, c0 + chunk_bit)
-  __device__ __forceinline__ uint32_t at(int row0, int c0) const {
-    return off[(c0 & 7) / 2] + (uint32_t)(row0 * W + (c0 & ~7)) * 16u;
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros if !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major); bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x by the SFU's ex2.approx.ftz, the instruction exp2f compiles to under
-// fast math: one instruction; results below 2^-126 flush to 0, far below any
-// weight a softmax row keeps.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two f32 as one bf16x2 register, `lo` in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &v, sizeof(u));
-  return u;
-}
+#include "flash_common.cuh"
 
 // Fragment layouts of m16n8k16 (lane = 4 g + t): the A fragment holds rows g
 // and g + 8 at columns 2t, 2t + 1 (regs 0, 1) and 2t + 8, 2t + 9 (regs 2,
 // 3); the B fragment rows (k) 2t, 2t + 1 and 2t + 8, 2t + 9 at column g; the
 // f32 accumulator rows g (elements 0, 1) and g + 8 (2, 3) at columns 2t, 2t + 1.
-template <int HD>
+template <int HD, bool WITH_LSE>
 __global__ void __launch_bounds__(TcConfig<HD>::BM * 2, TcConfig<HD>::MIN_BLOCKS)
 flash_attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                         int S, int H, int KH, float scale_log2, int causal, int window) {
+                         float* __restrict__ lse, int S, int H, int KH, float scale_log2,
+                         int causal, int window) {
   constexpr int BM = TcConfig<HD>::BM, BN = TcConfig<HD>::BN;
   constexpr int THREADS = tc_threads<HD>();
   constexpr int W = HD / 8;    // 16-byte chunks per row
@@ -538,6 +476,12 @@ flash_attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     float sum = l[i] + __shfl_xor_sync(0xffffffffu, l[i], 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float denom = fmaxf(sum, 1e-30f);
+    // m is the raw score's max, the same in the four lanes of the quad:
+    // L = scale m + ln l = (m c + log2 l) ln 2
+    if constexpr (WITH_LSE) {
+      if (t == 0 && rows[i] < S)
+        lse[((size_t)b * H + h) * S + rows[i]] = (m[i] * scale_log2 + log2f(denom)) * LN2;
+    }
     if (rows[i] < S) {
       __nv_bfloat16* dst = o + ((size_t)b * S + rows[i]) * q_stride + (size_t)h * HD + 2 * t;
 #pragma unroll
@@ -549,35 +493,40 @@ flash_attn_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KH,
-              float scale, int causal, int window, cudaStream_t stream) {
-  auto kernel = flash_attn_fwd_tc_kernel<HD>;
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+              int H, int KH, float scale, int causal, int window, cudaStream_t stream) {
+  auto kernel = lse != nullptr ? flash_attn_fwd_tc_kernel<HD, true>
+                               : flash_attn_fwd_tc_kernel<HD, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          tc_smem_bytes<HD>());
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (S + TcConfig<HD>::BM - 1) / TcConfig<HD>::BM);
   kernel<<<grid, tc_threads<HD>(), tc_smem_bytes<HD>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H, KH,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, H, KH,
       scale * LOG2E, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_hd(int dtype, const void* q, const void* k, const void* v, void* o, int B, int S,
-              int H, int KH, float scale, int causal, int window, cudaStream_t stream) {
-  if (dtype == 0) return launch_simt<HD>(q, k, v, o, B, S, H, KH, scale, causal, window, stream);
-  if (dtype == 1) return launch_tc<HD>(q, k, v, o, B, S, H, KH, scale, causal, window, stream);
+int launch_hd(int dtype, const void* q, const void* k, const void* v, void* o, float* lse, int B,
+              int S, int H, int KH, float scale, int causal, int window, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_simt<HD>(q, k, v, o, lse, B, S, H, KH, scale, causal, window, stream);
+  if (dtype == 1)
+    return launch_tc<HD>(q, k, v, o, lse, B, S, H, KH, scale, causal, window, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // The compiled kernel's registers, local memory (spills and stack) and the
-// shared memory a block takes (static plus dynamic).
+// shared memory a block takes (static plus dynamic); for bf16 the served
+// instantiation, without L.
 template <int HD>
 int attributes_hd(int dtype, int* regs, int* local_bytes, int* smem_bytes) {
   cudaFuncAttributes attr;
-  cudaError_t err = dtype == 0 ? cudaFuncGetAttributes(&attr, flash_attn_fwd_simt_kernel<HD>)
-                               : cudaFuncGetAttributes(&attr, flash_attn_fwd_tc_kernel<HD>);
+  cudaError_t err = dtype == 0
+                        ? cudaFuncGetAttributes(&attr, flash_attn_fwd_simt_kernel<HD>)
+                        : cudaFuncGetAttributes(&attr, flash_attn_fwd_tc_kernel<HD, false>);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
@@ -589,17 +538,19 @@ int attributes_hd(int dtype, int* regs, int* local_bytes, int* smem_bytes) {
 
 // Launches on `stream` and returns cudaGetLastError() of the launch (0 on
 // success).  dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
-// window <= 0 means no window.  The caller has checked shapes, types,
-// contiguity and the device.
-extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
+// window <= 0 means no window.  `lse`, when not null, receives each row's
+// log-sum-exp of its scaled scores as f32 in (B, H, S).  The caller has
+// checked shapes, types, contiguity and the device.
+extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int B, int S, int H, int KH, int hd, int dtype,
                               float scale, int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* L = static_cast<float*>(lse);
   switch (hd) {
-    case 16: return launch_hd<16>(dtype, q, k, v, o, B, S, H, KH, scale, causal, window, st);
-    case 64: return launch_hd<64>(dtype, q, k, v, o, B, S, H, KH, scale, causal, window, st);
-    case 128: return launch_hd<128>(dtype, q, k, v, o, B, S, H, KH, scale, causal, window, st);
-    case 256: return launch_hd<256>(dtype, q, k, v, o, B, S, H, KH, scale, causal, window, st);
+    case 16: return launch_hd<16>(dtype, q, k, v, o, L, B, S, H, KH, scale, causal, window, st);
+    case 64: return launch_hd<64>(dtype, q, k, v, o, L, B, S, H, KH, scale, causal, window, st);
+    case 128: return launch_hd<128>(dtype, q, k, v, o, L, B, S, H, KH, scale, causal, window, st);
+    case 256: return launch_hd<256>(dtype, q, k, v, o, L, B, S, H, KH, scale, causal, window, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

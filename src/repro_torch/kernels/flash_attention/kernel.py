@@ -1,9 +1,15 @@
-"""ctypes wrapper of the CUDA flash-attention forward kernel
-(``csrc/flash_attn_fwd.cu``), the port of ``flash_attention_pallas``: bf16
-inputs run the tensor-core kernel, f32 inputs the CUDA-core kernel.
+"""ctypes wrappers of the CUDA flash-attention kernels.
 
-On a CPU tensor the wrapper computes the kernel's plain version
-(``ref.attention_ref``); on a CUDA tensor it launches the kernel or raises.
+``flash_attention_fwd`` launches ``csrc/flash_attn_fwd.cu``, the port of
+``flash_attention_pallas``: bf16 inputs run the tensor-core kernel, f32
+inputs the CUDA-core kernel; with ``return_lse`` it also returns each row's
+log-sum-exp for the backward.  ``flash_attention_bwd`` launches the three
+kernels of ``csrc/flash_attn_bwd.cu`` (D, then dK/dV, then dQ; bf16 at
+``TC_BWD_HEAD_DIMS`` on the tensor cores, the rest on the CUDA cores), which
+have no TPU counterpart: they are the gradient of the forward.
+
+On a CPU tensor each wrapper computes its plain version (``ref.py``); on a
+CUDA tensor it launches its kernels or raises.
 """
 from __future__ import annotations
 
@@ -14,9 +20,15 @@ import torch
 
 from .. import LAUNCHES
 from ..build import load
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_ref, lse_ref
 
 NAME = "flash_attn_fwd"
+BWD_SOURCE = "flash_attn_bwd"
+# head_dims at which bf16 runs the backward's tensor-core kernels; the rest,
+# and f32, run its CUDA-core kernels
+TC_BWD_HEAD_DIMS = (16, 64)
+# the backward's kernels, in launch order, each with its own launch count
+BWD_KERNELS = ("flash_attn_bwd_pre", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq")
 # 16 is the reduced configs', 64 qwen3-0.6b's, 256 recurrentgemma-2b's
 HEAD_DIMS = (16, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -28,12 +40,18 @@ def _block_q(hd: int, dtype: torch.dtype) -> int:
     (bf16) or the CUDA-core kernel's (f32)."""
     if dtype == torch.bfloat16:
         return 128 if hd in (64, 256) else 64
-    return 16 if hd == 256 else 64
+    return {128: 32, 256: 16}.get(hd, 64)
+
+
+def _bwd_block(hd: int) -> int:
+    """Query rows and keys per tile of the backward's kernels, as in the .cu
+    file (the same for both types)."""
+    return 32 if hd == 256 else 64
 
 
 def _function():
     fn = load(NAME).flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -81,21 +99,134 @@ def _check(q, k, v, window):
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, S, H, hd); k/v: (B, S, KH, hd) -> (B, S, H, hd) in q's dtype."""
+                        causal: bool = True, window: Optional[int] = None,
+                        return_lse: bool = False):
+    """q: (B, S, H, hd); k/v: (B, S, KH, hd) -> (B, S, H, hd) in q's dtype;
+    with ``return_lse`` also each row's log-sum-exp of its scaled scores,
+    (B, H, S) f32."""
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
+        o = attention_ref(q, k, v, causal=causal, window=window)
+        if return_lse:
+            return o, lse_ref(q, k, causal=causal, window=window)
+        return o
     _check(q, k, v, window)
     B, S, H, hd = q.shape
     o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     fn = _function()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr() if return_lse else None,
                  B, S, H, k.shape[2], hd, _DTYPES[q.dtype], 1.0 / hd ** 0.5,
                  int(causal), window or 0, stream)
     if err:
         raise RuntimeError(f"{NAME} launch failed with CUDA error {err}")
     LAUNCHES[NAME] += 1
-    return o
+    return (o, lse) if return_lse else o
+
+
+def _bwd_functions():
+    lib = load(BWD_SOURCE)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    pre = lib.flash_attn_bwd_pre
+    pre.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+    dkdv = lib.flash_attn_bwd_dkdv
+    dkdv.argtypes = [ptr] * 8 + [i32] * 6 + [ctypes.c_float, i32, i32, ptr]
+    dq = lib.flash_attn_bwd_dq
+    dq.argtypes = [ptr] * 7 + [i32] * 6 + [ctypes.c_float, i32, i32, ptr]
+    for fn in (pre, dkdv, dq):
+        fn.restype = ctypes.c_int
+    return dict(zip(BWD_KERNELS, (pre, dkdv, dq)))
+
+
+def bwd_attributes(name: str, hd: int, dtype: torch.dtype) -> dict:
+    """Registers a thread, local bytes a thread and shared bytes a block of
+    backward kernel ``name`` (one of ``BWD_KERNELS``) at (hd, dtype)."""
+    fn = load(BWD_SOURCE).flash_attn_bwd_attributes
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(BWD_KERNELS.index(name), hd, _DTYPES[dtype],
+             *(ctypes.byref(x) for x in out))
+    if err:
+        raise RuntimeError(f"{name} attributes failed with CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes"),
+                    (x.value for x in out)))
+
+
+def _check_bwd(q, k, v, o, lse, do, window):
+    if q.dim() != 4:
+        raise ValueError("q must be 4-d: (B, S, H, hd)")
+    B, S, H, hd = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} must match q "
+                             f"{tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: expected "
+                         f"{(B, H, S)} float32 from the forward")
+    _check(q, k, v, window)
+    if -(-S // _bwd_block(hd)) > _MAX_GRID_Y:
+        raise ValueError(f"S={S} exceeds the backward kernels' grid")
+    tensors = (q, k, v, o, lse, do)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("q, k, v, o, lse and do must lie on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("o, lse and do must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the backward kernels read 16-byte aligned rows")
+
+
+def bwd_buffers(q, k, v, o, lse, do, *, window: Optional[int] = None) -> dict:
+    """Checks the backward's inputs and allocates its scratch D and outputs:
+    the tensors ``launch_bwd`` takes, by name."""
+    _check_bwd(q, k, v, o, lse, do, window)
+    B, S, H, _ = q.shape
+    return {"q": q, "k": k, "v": v, "o": o, "lse": lse, "do": do,
+            "delta": torch.empty((B, H, S), dtype=torch.float32, device=q.device),
+            "dq": torch.empty_like(q), "dk": torch.empty_like(k),
+            "dv": torch.empty_like(v)}
+
+
+_BWD_ARGS = {  # each kernel's tensors, in its C signature's order
+    "flash_attn_bwd_pre": ("o", "do", "delta"),
+    "flash_attn_bwd_dkdv": ("q", "k", "v", "do", "lse", "delta", "dk", "dv"),
+    "flash_attn_bwd_dq": ("q", "k", "v", "do", "lse", "delta", "dq"),
+}
+
+
+def launch_bwd(name: str, bufs: dict, *, causal: bool,
+               window: Optional[int]) -> None:
+    """Launches backward kernel ``name`` on ``bufs`` (from ``bwd_buffers``)
+    and counts it; ``flash_attention_bwd`` launches the three in order."""
+    q = bufs["q"]
+    B, S, H, hd = q.shape
+    ints = (B, S, H, hd) if name == "flash_attn_bwd_pre" else (
+        B, S, H, bufs["k"].shape[2], hd)
+    tail = () if name == "flash_attn_bwd_pre" else (
+        1.0 / hd ** 0.5, int(causal), window or 0)
+    fn = _bwd_functions()[name]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(bufs[t].data_ptr() for t in _BWD_ARGS[name]), *ints,
+                 _DTYPES[q.dtype], *tail, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None):
+    """The gradient of ``flash_attention_fwd`` from its output ``o`` and
+    log-sum-exp ``lse``: (dq (B, S, H, hd), dk, dv (B, S, KH, hd)) in q's
+    dtype.  Launches ``BWD_KERNELS`` in order, one count each."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    bufs = bwd_buffers(q, k, v, o, lse, do, window=window)
+    for name in BWD_KERNELS:
+        launch_bwd(name, bufs, causal=causal, window=window)
+    return bufs["dq"], bufs["dk"], bufs["dv"]

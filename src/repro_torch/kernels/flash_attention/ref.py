@@ -4,6 +4,11 @@
 ``attention_ref``      — naive O(S²)-memory softmax attention (the oracle).
 ``attention_chunked``  — the same with the queries taken in blocks, so live
 memory is one (block × Sk) score block; numerically equivalent.
+``lse_ref``            — each row's log-sum-exp of its scaled scores, the
+statistic the forward kernel saves for the backward.
+``attention_bwd_ref``  — the gradient, written out from that statistic as
+the backward kernels compute it (the reference has no counterpart: its
+gradients come from autograd through its jnp paths).
 """
 from __future__ import annotations
 
@@ -77,3 +82,58 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
         out.append(torch.einsum("bhgqk,bkhd->bqhgd", p, vf))
     return torch.cat(out, dim=1).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _scores(q, k, causal, window):
+    """Scaled f32 scores (B, KH, g, S, S) and the mask of visible keys, for
+    self-attention with contiguous positions."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    qf = q.float().reshape(B, S, KH, H // KH, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) / math.sqrt(hd)
+    pos = torch.arange(S, device=q.device)
+    qp, kp = pos[:, None], pos[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= qp - kp < window
+    return s, mask
+
+
+def lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+            window: Optional[int] = None) -> torch.Tensor:
+    """L = log sum_j exp(scale q.k_j) over the visible keys: (B, H, S) f32."""
+    B, S, H, _ = q.shape
+    s, mask = _scores(q, k, causal, window)
+    L = torch.logsumexp(s.masked_fill(~mask, -torch.inf), dim=-1)
+    return L.reshape(B, H, S)
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                      window: Optional[int] = None):
+    """The gradient of self-attention, written out (not autograd).
+
+    q, o, do: (B, S, H, hd); k, v: (B, S, KH, hd); lse: (B, H, S) f32 from
+    the forward.  P is recomputed from q, k and L; then D = rowsum(dO o O),
+    dV = P^T dO, dP = dO V^T, dS = P o (dP - D), dQ = scale dS K and
+    dK = scale dS^T Q, dK and dV summed over the H/KH query heads of each KV
+    group.  All in f32; returns (dq, dk, dv) in q's dtype."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    g = H // KH
+    scale = 1.0 / math.sqrt(hd)
+    s, mask = _scores(q, k, causal, window)
+    L = lse.float().reshape(B, KH, g, S)[..., None]
+    p = torch.where(mask, torch.exp(s - L), 0.0)  # (B, KH, g, S, S)
+    dof = do.float().reshape(B, S, KH, g, hd)
+    D = (do.float() * o.float()).sum(-1).reshape(B, S, KH, g)
+    D = D.permute(0, 2, 3, 1)[..., None]  # (B, KH, g, S, 1)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
+    ds = p * (dp - D)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                      q.float().reshape(B, S, KH, g, hd)) * scale
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))

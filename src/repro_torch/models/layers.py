@@ -90,8 +90,8 @@ def _out_proj(p, o, dtype):
 
 def attention_full_seq(p, x, cfg: ArchConfig, *, causal: bool,
                        window: Optional[int], impl: str = "auto"):
-    """Prefill / encoder path: self-attention over the full sequence.
-    Returns (y, (k, v))."""
+    """Train / prefill path: self-attention over the full sequence.
+    Returns (y, (k, v)); train mode drops (k, v)."""
     pos = torch.arange(x.shape[1], device=x.device)
     q, k, v = _proj_qkv(p, x, x, cfg, pos, pos, use_rope=True)
     o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),

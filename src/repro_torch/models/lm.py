@@ -5,18 +5,21 @@ a single layer for uniform stacks) whose parameters are stacked along a
 leading dimension; the reference's ``lax.scan`` over that dimension is a
 loop here.  Decode caches are stacked along the same dimension.
 
-Modes: "prefill" (full sequence, returns the cache) and "decode" (one token
-against the cache, updated in place).  Dense (attention), Mamba2 (ssm) and
-RG-LRU (rglru) blocks are ported, with the layers before and after the stack
-(``dec/pre{i}``, ``dec/tail{i}``).  ``model_defs`` covers every
-architecture, so parameter counts hold for all of them; the blocks of the
-other families raise ``NotImplementedError`` until their slice of the port.
+Modes: "train" (full sequence, no cache; each superblock rematerialised in
+the backward when ``cfg.remat``), "prefill" (full sequence, returns the
+cache) and "decode" (one token against the cache, updated in place).  Dense
+(attention), Mamba2 (ssm) and RG-LRU (rglru) blocks are ported for serving,
+with the layers before and after the stack (``dec/pre{i}``, ``dec/tail{i}``);
+dense blocks also train.  ``model_defs`` covers every architecture, so
+parameter counts hold for all of them; the blocks of the other families
+raise ``NotImplementedError`` until their slice of the port.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ArchConfig
@@ -33,6 +36,11 @@ from .ssm import ssm_block, ssm_cache_defs, ssm_defs
 NOT_PORTED = {
     "moe": "a later slice (mixture of experts)",
     "xdense": "a later slice (encoder-decoder)",
+}
+# block kinds that serve but do not train yet: their kernels have no backward
+NOT_TRAINED = {
+    "ssm": "a later slice (the SSD backward kernel)",
+    "rglru": "a later slice (the RG-LRU backward kernel)",
 }
 
 
@@ -57,12 +65,16 @@ def structure(cfg: ArchConfig):
     return pre, (rest[0],), len(rest), ()
 
 
-def _check_ported(cfg: ArchConfig) -> None:
+def _check_ported(cfg: ArchConfig, mode: str = "prefill") -> None:
     for kind in layer_kinds(cfg):
         if kind in NOT_PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: {kind} blocks are not ported yet; they come "
                 f"with {NOT_PORTED[kind]}")
+        if mode == "train" and kind in NOT_TRAINED:
+            raise NotImplementedError(
+                f"{cfg.name}: {kind} blocks do not train yet; they train "
+                f"with {NOT_TRAINED[kind]}")
 
 
 def block_defs(cfg: ArchConfig, kind: str, d_ff_override: Optional[int] = None):
@@ -136,23 +148,25 @@ def num_params(cfg: ArchConfig) -> int:
 # ------------------------------------------------------------------- model
 class LM(nn.Module):
     """A model's parameters, registered under the flat keys of the
-    reference's checkpoints (``embed``, ``dec/stack/b0/attn/wq``, ...)."""
+    reference's checkpoints (``embed``, ``dec/stack/b0/attn/wq``, ...);
+    they require grad only for training (``trainable``)."""
 
-    def __init__(self, cfg: ArchConfig, params):
+    def __init__(self, cfg: ArchConfig, params, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         for key, t in flatten(params).items():
-            self.register_parameter(key, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(key, nn.Parameter(t, requires_grad=trainable))
 
     def tree(self):
         """The parameters as the nested dict the layer functions take."""
         return unflatten(dict(self.named_parameters()))
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator) -> LM:
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                trainable: bool = False) -> LM:
     """Random parameters on ``generator.device``, drawn from ``generator``."""
     return LM(cfg, init_tree(model_defs(cfg), generator,
-                             getattr(torch, cfg.param_dtype)))
+                             getattr(torch, cfg.param_dtype)), trainable)
 
 
 def init_cache(cfg: ArchConfig, batch: int, ctx: int, device):
@@ -168,7 +182,7 @@ def block_apply(p, x, cfg: ArchConfig, kind: str, mode: str, cache, pos,
                 impl: str):
     """Returns (x, cache_out).  In prefill ``cache`` is the cache capacity
     (which a recurrent block does not need); in decode it is this layer's
-    cache, updated in place."""
+    cache, updated in place; in train there is none, and cache_out is None."""
     if kind in NOT_PORTED:
         raise NotImplementedError(f"{kind} blocks come with {NOT_PORTED[kind]}")
     if kind == "ssm":
@@ -192,7 +206,8 @@ def block_apply(p, x, cfg: ArchConfig, kind: str, mode: str, cache, pos,
     else:  # decoder self-attention is causal; the encoder kind waits
         ao, kv = attention_full_seq(p["attn"], h, cfg, causal=True,
                                     window=window, impl=impl)
-        cache_out = attention_prefill_cache(kv[0], kv[1], cfg, cache)
+        cache_out = attention_prefill_cache(kv[0], kv[1], cfg, cache) \
+            if mode == "prefill" else None
     x = x + ao
     x = x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
     return x, cache_out
@@ -205,6 +220,17 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int):
+    """The ``n`` layers of a stacked tree, each leaf split by
+    ``torch.unbind``: the backward stacks the layers' gradients once, where
+    indexing layer i adds a zero-padded gradient of the whole stack per
+    layer (the reference's ``lax.scan`` writes each layer's slice)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _stack(trees):
     first = trees[0]
     if isinstance(first, dict):
@@ -215,13 +241,13 @@ def _stack(trees):
 # ----------------------------------------------------------------- forward
 def forward(params, cfg: ArchConfig, tokens, *, mode: str, cache=None,
             pos: Optional[int] = None, impl: str = "auto", cache_len=None):
-    """Returns (hidden (B, S, D), cache).
+    """Returns (hidden (B, S, D), cache); the cache is None in train.
 
     tokens: (B, S) integer (S == 1 for decode); pos: decode position;
     cache: from ``init_cache`` or a prefill, updated in place by decode."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode {mode!r}: the port serves (prefill, decode)")
-    _check_ported(cfg)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: the port runs (train, prefill, decode)")
+    _check_ported(cfg, mode)
     cdt = getattr(torch, cfg.compute_dtype)
     pre, sb_kinds, n_super, tail = structure(cfg)
     x = params["embed"][tokens].to(cdt)
@@ -238,7 +264,25 @@ def forward(params, cfg: ArchConfig, tokens, *, mode: str, cache=None,
         name = f"pre{i}"
         x, new_cache[name] = block_apply(dec_p[name], x, cfg, kind, mode,
                                          cache_in(dec_c, name), pos, impl)
+
+    stack_p = _unstack(dec_p["stack"], n_super) if mode == "train" else None
+
+    def superblock(x, i: int):
+        """Superblock ``i`` of the stack in train mode."""
+        p_i = stack_p[i]
+        for j, kind in enumerate(sb_kinds):
+            x, _ = block_apply(p_i[f"b{j}"], x, cfg, kind, mode, None, None,
+                               impl)
+        return x
+
     for i in range(n_super):
+        if mode == "train":
+            # the reference's jax.checkpoint(body): only x is kept between
+            # superblocks, the rest is recomputed in the backward
+            x = torch.utils.checkpoint.checkpoint(
+                superblock, x, i, use_reentrant=False) \
+                if cfg.remat else superblock(x, i)
+            continue
         p_i = _layer(dec_p["stack"], i)
         c_i = _layer(dec_c["stack"], i) if mode == "decode" else None
         co = {}
@@ -254,6 +298,8 @@ def forward(params, cfg: ArchConfig, tokens, *, mode: str, cache=None,
     if mode == "prefill":  # decode updated ``cache`` in place
         new_cache["stack"] = _stack(layer_caches)
         cache = {"dec": new_cache}
+    elif mode == "train":
+        cache = None
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, cache
 

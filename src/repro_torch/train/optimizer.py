@@ -1,0 +1,82 @@
+"""AdamW with global-norm clipping and a cosine schedule
+(``repro/train/optimizer.py``), with the reference's arithmetic: the same
+f32 operations in the same order, bias correction, and decoupled weight
+decay on every parameter with two or more dimensions (so the stacked
+per-layer norm scales, (n_layers, D), are decayed as in the reference).
+
+The reference returns new arrays; the port writes the new parameters and
+moments into the old tensors in place, so a step holds no second copy of
+them, and returns the same dicts.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..models.params import flatten, unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+
+
+def lr_at(step, oc: OptConfig) -> torch.Tensor:
+    """Linear warm-up, then a cosine down to ``min_lr_frac``; f32."""
+    step = torch.as_tensor(step).float()
+    warm = torch.clamp(step / max(oc.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - oc.warmup_steps)
+                    / max(oc.total_steps - oc.warmup_steps, 1), 0.0, 1.0)
+    cos = oc.min_lr_frac + (1 - oc.min_lr_frac) * 0.5 * (1 + torch.cos(math.pi * t))
+    return oc.lr * warm * cos
+
+
+def init_opt_state(params):
+    """Zero moments shaped as ``params`` and step 0 (int32), on its device."""
+    flat = flatten(params)
+    zeros = lambda: unflatten({k: torch.zeros_like(p) for k, p in flat.items()})
+    device = next(iter(flat.values())).device
+    return {"m": zeros(), "v": zeros(),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in flatten(tree).values()))
+
+
+@torch.no_grad()
+def adamw_update(params, grads, opt_state, oc: OptConfig):
+    """One AdamW step; returns (params, opt_state, grad_norm), the params
+    and moments updated in place."""
+    step = opt_state["step"] + 1
+    gn = global_norm(grads)
+    scale = torch.clamp(oc.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    lr = lr_at(step, oc)
+    c1 = 1.0 - oc.b1 ** step.float()
+    c2 = 1.0 - oc.b2 ** step.float()
+    flat_g = flatten(grads)
+    flat_m, flat_v = flatten(opt_state["m"]), flatten(opt_state["v"])
+    for key, p in flatten(params).items():
+        g = flat_g[key].float() * scale
+        m = oc.b1 * flat_m[key].float() + (1 - oc.b1) * g
+        v = oc.b2 * flat_v[key].float() + (1 - oc.b2) * g * g
+        mhat = m / c1
+        vhat = v / c2
+        delta = mhat / (torch.sqrt(vhat) + oc.eps)
+        if p.ndim >= 2:  # decoupled weight decay on matrices only
+            delta = delta + oc.weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+        flat_m[key].copy_(m)
+        flat_v[key].copy_(v)
+    return params, {"m": opt_state["m"], "v": opt_state["v"], "step": step}, gn

@@ -16,7 +16,11 @@ hi + lo bf16 pairs, ``csrc/ssd_bf16.cu``); for the RG-LRU scan 1e-5 on its f32 o
 order with the same rounding, so they should agree exactly) and one bf16
 step, 8e-3, on h_seq from bf16 inputs; 1e-4 for f32 model logits through a
 few layers, where only the order of sums differs between the card and the
-CPU.
+CPU.  The flash backward's kernels against ``attention_bwd_ref`` from the
+same inputs: 1e-4 on f32 gradients (sums of up to S or G·S terms in another
+order), 2e-2 on bf16 ones (one rounding of each output, and of P and dS
+where a kernel rounds them for its products), 1e-5 on D and on the
+forward's log-sum-exp against ``lse_ref``.
 """
 import numpy as np
 import pytest
@@ -24,9 +28,16 @@ import torch
 
 from repro_torch.configs import ARCHS
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, attributes
+from repro_torch.kernels.flash_attention.kernel import (BWD_KERNELS, HEAD_DIMS,
+                                                        attributes,
+                                                        bwd_attributes,
+                                                        bwd_buffers,
+                                                        flash_attention_bwd,
+                                                        flash_attention_fwd,
+                                                        launch_bwd)
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref, lse_ref)
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -37,7 +48,10 @@ from repro_torch.kernels.ssd_scan.ref import (chunk_cumsum, chunk_scan_ref,
                                               ssd_chunk_ref)
 from repro_torch.models import ssm
 from repro_torch.models.lm import LM, init_params
-from repro_torch.models.steps import make_decode_step, make_prefill_step
+from repro_torch.models.params import flatten, unflatten
+from repro_torch.models.steps import (make_decode_step, make_prefill_step,
+                                      make_train_step)
+from repro_torch.train.optimizer import init_opt_state
 
 pytestmark = pytest.mark.cuda
 
@@ -345,3 +359,125 @@ def test_reduced_model_on_card_matches_cpu(cuda_device, arch):
             glog, gcache = decode(gpu, gcache, ctok.to(cuda_device), S + i)
             clog, ccache = decode(cpu, ccache, ctok, S + i)
             np.testing.assert_allclose(_np(glog), _np(clog), rtol=1e-4, atol=1e-4)
+
+
+BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+LSE_TOL = dict(rtol=1e-5, atol=1e-5)
+TRAIN_SHAPE = (4, 2048, 16, 8, 64, None, True)  # qwen3-0.6b training
+
+
+def _qkv_do(device, dtype, B, S, H, KH, hd, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, dtype)
+            for s in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd), (B, S, H, hd))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KH,hd,window,causal", SHAPES + [TRAIN_SHAPE])
+def test_flash_backward_vs_plain_on_card(cuda_device, B, S, H, KH, hd, window,
+                                         causal, dtype):
+    """The forward's log-sum-exp against lse_ref, then each backward kernel
+    (one launch each) against its plain version from the same inputs."""
+    q, k, v, do = _qkv_do(cuda_device, dtype, B, S, H, KH, hd, seed=S + hd + 1)
+    mask = dict(causal=causal, window=window)
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True, **mask)
+    torch.testing.assert_close(o, flash_attention_fwd(q, k, v, **mask),
+                               rtol=0, atol=0)  # L changes nothing of o
+    np.testing.assert_allclose(_np(lse), _np(lse_ref(q, k, **mask)), **LSE_TOL)
+    bufs = bwd_buffers(q, k, v, o, lse, do, window=window)
+    before = {n: LAUNCHES[n] for n in BWD_KERNELS}
+    for name in BWD_KERNELS:
+        launch_bwd(name, bufs, **mask)
+    torch.cuda.synchronize()
+    assert {n: LAUNCHES[n] - before[n] for n in BWD_KERNELS} == dict.fromkeys(BWD_KERNELS, 1)
+    np.testing.assert_allclose(
+        _np(bufs["delta"]), _np((do.float() * o.float()).sum(-1).transpose(1, 2)),
+        **LSE_TOL)
+    ref = attention_bwd_ref(q, k, v, o, lse, do, **mask)
+    for got, r in zip((bufs["dq"], bufs["dk"], bufs["dv"]), ref):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(_np(got), _np(r), **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KH,hd,window,causal", [
+    (2, 200, 4, 2, 64, None, True), (1, 129, 4, 2, 16, 40, True),
+    (1, 100, 4, 4, 64, None, False), (1, 300, 10, 1, 256, 128, True)])
+def test_flash_attention_function_vs_autograd_on_card(cuda_device, B, S, H, KH,
+                                                      hd, window, causal, dtype):
+    """Through ``flash_attention`` with grad on: one forward launch and one
+    of each backward kernel, gradients against autograd through
+    attention_ref (which also differs in the bf16 kernel's rounding of P
+    in the output that D reads: within the bf16 tolerance)."""
+    q, k, v, do = _qkv_do(cuda_device, dtype, B, S, H, KH, hd, seed=S + 7)
+    mask = dict(causal=causal, window=window)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    LAUNCHES.clear()
+    got = torch.autograd.grad(flash_attention(*leaves, **mask), leaves, do)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"flash_attn_fwd": 1, **dict.fromkeys(BWD_KERNELS, 1)}
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(attention_ref(*leaves, **mask), leaves, do)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype
+        np.testing.assert_allclose(_np(g), _np(r), **BWD_TOL[dtype])
+
+
+def test_backward_wrapper_checks_on_card(cuda_device):
+    """Wrong shapes, types and alignment raise before any launch."""
+    q, k, v, do = _qkv_do(cuda_device, torch.float32, 1, 8, 2, 2, 64, seed=1)
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True)
+    raw = torch.empty(q.numel() + 1, device=cuda_device)
+    shifted = raw[1:].view(q.shape)  # contiguous, 4 bytes off 16
+    cases = [((q, k, v, o[:, :4].contiguous(), lse, do), "o .* must match q"),
+             ((q, k, v, o, lse.to(torch.bfloat16), do), "lse"),
+             ((q, k, v, o, lse, do.to(torch.bfloat16)), "do .* must match q"),
+             ((q, k, v, o, lse, do.cpu()), "one CUDA device"),
+             ((q, k, v, o, lse, do.transpose(1, 2).contiguous().transpose(1, 2)),
+              "contiguous"),
+             ((q, k, v, o, lse, shifted), "16-byte aligned")]
+    before = {n: LAUNCHES[n] for n in BWD_KERNELS}
+    for args, error in cases:
+        with pytest.raises((ValueError, TypeError), match=error):
+            flash_attention_bwd(*args)
+    assert {n: LAUNCHES[n] for n in BWD_KERNELS} == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("name", BWD_KERNELS)
+def test_flash_backward_kernels_use_no_local_memory(cuda_device, name, hd, dtype):
+    attrs = bwd_attributes(name, hd, dtype)
+    assert attrs["local_bytes"] == 0, attrs
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "smollm-135m"])
+def test_reduced_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One train step of a reduced config on the card: each of its 2 layers
+    launches the forward kernel twice (the forward and the rematerialised
+    recompute) and each backward kernel once; loss, grad_norm and the
+    updated parameters as on the CPU from the same weights and batch."""
+    cfg = ARCHS[arch].reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0)).tree()
+    gpu = unflatten({k: t.to(cuda_device) for k, t in flatten(cpu).items()})
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, size=(2, 33)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    step = make_train_step(cfg)
+    LAUNCHES.clear()
+    gstate, gm = step({"params": gpu, "opt": init_opt_state(gpu)},
+                      {k: t.to(cuda_device) for k, t in batch.items()})
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"flash_attn_fwd": 2 * cfg.n_layers,
+                              **dict.fromkeys(BWD_KERNELS, cfg.n_layers)}
+    cstate, cm = step({"params": cpu, "opt": init_opt_state(cpu)}, batch)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(_np(gm[key]), _np(cm[key]), rtol=1e-5, atol=1e-5)
+    # a gradient element below the f32 noise may flip the sign of its Adam
+    # update, at most 2 lr(1) = 6e-6 either way (tests/test_torch_train.py)
+    g, c = flatten(gstate["params"]), flatten(cstate["params"])
+    for key in c:
+        np.testing.assert_allclose(_np(g[key]), _np(c[key]), rtol=0, atol=1.2e-5,
+                                   err_msg=key)

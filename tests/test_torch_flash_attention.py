@@ -6,7 +6,16 @@ Tolerances are those of ``tests/test_kernels.py``: f32 2e-5 (the two
 packages sum in another order), bf16 2e-2 (one rounding of the output).
 The CUDA kernel itself is held against its plain version on the card in
 ``tests/test_torch_cuda.py``.
+
+Gradients: the port's written-out backward (``attention_bwd_ref``), autograd
+through its plain path, and ``FlashAttention`` (the wrappers' plain
+versions on the CPU) against ``jax.grad`` of the reference's
+``attention_ref`` and ``attention_chunked``, 1e-4 in f32 (a gradient sums
+up to S or G·S terms, in another order) and bf16 2e-2.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,9 +25,12 @@ from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_chunked as jax_chunked
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_chunked
+from repro_torch.kernels.flash_attention.kernel import (BWD_KERNELS,
+                                                        flash_attention_bwd,
+                                                        flash_attention_fwd)
+from repro_torch.kernels.flash_attention.ops import FlashAttention, flash_attention
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_chunked, lse_ref)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -186,7 +198,7 @@ def test_wrapper_checks_before_launching(shapes, dtype, error):
 
 
 @pytest.mark.parametrize("dtype,hd,block_q", [
-    (torch.float32, 64, 64), (torch.float32, 256, 16),
+    (torch.float32, 64, 64), (torch.float32, 128, 32), (torch.float32, 256, 16),
     (torch.bfloat16, 64, 128), (torch.bfloat16, 256, 128),
 ])
 def test_wrapper_checks_the_grid_of_each_kernel(dtype, hd, block_q):
@@ -197,3 +209,125 @@ def test_wrapper_checks_the_grid_of_each_kernel(dtype, hd, block_q):
     with pytest.raises(ValueError, match="exceed the kernel's grid"):
         flash_attention_fwd(q, q, q)
     assert LAUNCHES["flash_attn_fwd"] == before
+
+
+def _grad_tol(name):
+    return dict(rtol=2e-2, atol=2e-2) if name == "bfloat16" \
+        else dict(rtol=1e-4, atol=1e-4)
+
+
+@functools.partial(jax.jit, static_argnames=("fn", "causal", "window"))
+def _jax_grads(fn, jq, jk, jv, jdo, *, causal, window):
+    """jax.grad of sum(fn(q, k, v) * dO) with respect to q, k and v."""
+    return jax.grad(lambda q, k, v: jnp.sum(
+        fn(q, k, v, causal=causal, window=window).astype(jnp.float32)
+        * jdo.astype(jnp.float32)), argnums=(0, 1, 2))(jq, jk, jv)
+
+
+def _port_grads(q, k, v, do, **mask):
+    """The port's three gradients: the written-out plain backward from the
+    plain forward's output and log-sum-exp, autograd through the plain path,
+    and FlashAttention on the CPU."""
+    o = flash_attention(q, k, v, **mask)
+    written = attention_bwd_ref(q, k, v, o, lse_ref(q, k, **mask), do, **mask)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    autograd = torch.autograd.grad(flash_attention(*leaves, **mask), leaves, do)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    function = torch.autograd.grad(
+        FlashAttention.apply(*leaves, mask["causal"], mask["window"]), leaves, do)
+    return {"attention_bwd_ref": written, "autograd": autograd,
+            "FlashAttention": function}
+
+
+GRAD_CASES = ([c + (True,) for c in GRID] + RAGGED[:1] + RAGGED[2:]
+              + TILE_EDGES[:5] + TILE_EDGES[7:9])
+
+
+@pytest.mark.parametrize("name", sorted(DTYPES))
+@pytest.mark.parametrize("B,S,H,KH,hd,window,causal", GRAD_CASES)
+def test_gradients_vs_jax_grad_of_attention_ref(B, S, H, KH, hd, window, causal,
+                                                name):
+    """Windows, GQA (KH < H), MQA, KH = H, ragged and non-causal, S = 1."""
+    (jq, jk, jv), (q, k, v) = _inputs(S + 3, B, S, H, KH, hd, name)
+    rng = np.random.default_rng(S + 4)
+    do_np = rng.normal(size=(B, S, H, hd)).astype(np.float32)
+    jdt, tdt = DTYPES[name]
+    jdo, do = jnp.asarray(do_np, jdt), torch.from_numpy(do_np).to(tdt)
+    mask = dict(causal=causal, window=window)
+    ref = _jax_grads(jax_ref, jq, jk, jv, jdo, **mask)
+    for how, got in _port_grads(q, k, v, do, **mask).items():
+        for what, g, r in zip(("dq", "dk", "dv"), got, ref):
+            assert g.dtype == q.dtype
+            np.testing.assert_allclose(_np(g), _np(r), err_msg=f"{how} {what}",
+                                       **_grad_tol(name))
+
+
+@pytest.mark.parametrize("window", [None, 256])
+def test_gradients_vs_jax_grad_of_attention_chunked(window):
+    """S = 1024, the length at which both packages' plain paths take the
+    query-blocked version."""
+    (jq, jk, jv), (q, k, v) = _inputs(9, 1, 1024, 4, 2, 64, "float32")
+    do_np = np.random.default_rng(10).normal(size=q.shape).astype(np.float32)
+    mask = dict(causal=True, window=window)
+    ref = _jax_grads(jax_chunked, jq, jk, jv, jnp.asarray(do_np), **mask)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(attention_chunked(*leaves, **mask), leaves,
+                              torch.from_numpy(do_np))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(_np(g), _np(r), rtol=1e-4, atol=1e-4)
+    o = attention_chunked(q, k, v, **mask)
+    written = attention_bwd_ref(q, k, v, o, lse_ref(q, k, **mask),
+                                torch.from_numpy(do_np), **mask)
+    for g, r in zip(written, ref):
+        np.testing.assert_allclose(_np(g), _np(r), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_lse_ref_is_the_log_of_the_softmax_denominator(window):
+    """exp(scale q.k - L) sums to 1 over the visible keys of every row."""
+    q, k = (torch.from_numpy(np.random.default_rng(s).normal(
+        size=(2, 9, 4, 16)).astype(np.float32))[:, :, :h] for s, h in ((1, 4), (2, 2)))
+    L = lse_ref(q, k, causal=True, window=window)
+    assert L.shape == (2, 4, 9) and L.dtype == torch.float32
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.reshape(2, 9, 2, 2, 16), k) / 4.0
+    pos = torch.arange(9)
+    mask = pos[:, None] >= pos[None, :]
+    if window:
+        mask &= pos[:, None] - pos[None, :] < window
+    p = torch.where(mask, torch.exp(s - L.reshape(2, 2, 2, 9, 1)), 0.0)
+    np.testing.assert_allclose(p.sum(-1).numpy(), 1.0, rtol=1e-6)
+
+
+def test_cpu_wrappers_return_the_plain_lse_and_backward():
+    (_, _, _), (q, k, v) = _inputs(1, 1, 33, 4, 2, 16, "float32")
+    o, L = flash_attention_fwd(q, k, v, window=5, return_lse=True)
+    torch.testing.assert_close(L, lse_ref(q, k, window=5), rtol=0, atol=0)
+    do = torch.ones_like(q)
+    for got, ref in zip(flash_attention_bwd(q, k, v, o, L, do, window=5),
+                        attention_bwd_ref(q, k, v, o, L, do, window=5)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("change,error", [
+    ({"o": (1, 8, 2, 32)}, "o .* must match q"),
+    ({"do": (1, 8, 2, 64, "bfloat16")}, "do .* must match q"),
+    ({"lse": (1, 8, 2)}, "lse .* float32 from the forward"),
+    ({"lse": (1, 2, 8, "bfloat16")}, "lse .* float32 from the forward"),
+    ({"q": (1, 8, 2, 48), "k": (1, 8, 2, 48), "v": (1, 8, 2, 48),
+      "o": (1, 8, 2, 48), "do": (1, 8, 2, 48)}, "head_dim 48"),
+    ({}, "CUDA device"),
+])
+def test_backward_wrapper_checks_before_launching(change, error):
+    """Off the CPU the backward's wrapper checks before it touches a kernel;
+    meta tensors reach those checks with no card."""
+    shapes = {"q": (1, 8, 2, 64), "k": (1, 8, 2, 64), "v": (1, 8, 2, 64),
+              "o": (1, 8, 2, 64), "do": (1, 8, 2, 64), "lse": (1, 2, 8, "float32")}
+    shapes.update(change)
+    t = {n: torch.empty(s[:-1] if isinstance(s[-1], str) else s,
+                        dtype=getattr(torch, s[-1]) if isinstance(s[-1], str)
+                        else torch.float32, device="meta")
+         for n, s in shapes.items()}
+    before = {n: LAUNCHES[n] for n in BWD_KERNELS}
+    with pytest.raises((ValueError, TypeError), match=error):
+        flash_attention_bwd(t["q"], t["k"], t["v"], t["o"], t["lse"], t["do"])
+    assert {n: LAUNCHES[n] for n in BWD_KERNELS} == before

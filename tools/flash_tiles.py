@@ -59,7 +59,9 @@ def build(job):
     with open(src, "w") as f:
         f.write(text)
     lib = os.path.join(d, "lib.so")
-    proc = subprocess.run([kb._nvcc(), *kb.NVCC_FLAGS, "-o", lib, src],
+    # the copy includes the checked-in source's headers (flash_common.cuh)
+    proc = subprocess.run([kb._nvcc(), *kb.NVCC_FLAGS, "-I", os.path.dirname(SRC),
+                           "-o", lib, src],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return name, lib, proc.returncode, proc.stdout
 
@@ -67,14 +69,14 @@ def build(job):
 def launcher(lib_path: str):
     import torch
     fn = ctypes.CDLL(lib_path).flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def call(q, k, v, causal, window):
         B, S, H, hd = q.shape
         o = torch.empty_like(q)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, B, S, H,
                  k.shape[2], hd, 1, 1.0 / hd ** 0.5, int(causal), window or 0,
                  torch.cuda.current_stream().cuda_stream)
         if err:
