@@ -8,7 +8,8 @@ Phases; any that fails ends the run with a non-zero exit:
      CUDA kernel from the checkout's sources (one nvcc per source, all
      started together), with nvcc's register, shared-memory and spill report;
      the run fails if a bf16 (tensor-core) flash or SSD instantiation, an
-     f32 flash instantiation or a flash backward instantiation spills;
+     f32 flash instantiation, a flash backward, SSD backward or RG-LRU
+     backward instantiation spills;
   2. every kernel against its plain PyTorch version on the card:
      - flash_attn_fwd over the grid of ``tests/test_kernels.py`` plus a
        ragged length, a non-causal case, head_dim 256 (small, ragged and
@@ -37,6 +38,17 @@ Phases; any that fails ends the run with a non-zero exit:
        ``attention_bwd_ref`` over flash_attn_fwd's grid plus qwen3-0.6b's
        training shape, f32 and bf16 (dq, dk, dv 1e-4 and 2e-2; D 1e-5), and
        the forward's log-sum-exp against ``lse_ref`` (1e-5);
+     - rglru_scan_bwd against ``rglru_scan_bwd_ref`` over rglru_scan's grid
+       and recurrentgemma-2b's training shape, with and without dh_final,
+       f32 and bf16 (1e-5; bf16 da and du one bf16 step, 8e-3);
+     - the SSD backward's kernels (ssd_bwd_dstate, ssd_bwd_state_pass,
+       ssd_bwd_chunk) each against its plain version from the same inputs
+       over the bf16 path's grid and mamba2-780m's training shape, with and
+       without h0 and dh_final, f32 and bf16 (1e-4 and 2e-2, see SSD_BWD_TOL);
+     - ``SSDScan`` and ``RGLRUScan`` through ``ops.ssd`` and
+       ``ops.rglru_scan`` with grad on, against autograd through the plain
+       versions, with their launches (the SSD also at a ragged length, through
+       the padding);
   3. each kernel's time at its serving shape beside its plain version, one
      PyTorch library call computing the same function where there is one (a
      yardstick the port never calls) and the least time the card could take;
@@ -46,7 +58,10 @@ Phases; any that fails ends the run with a non-zero exit:
      ``ssd_chunked_ref``, with the whole function's bound; for the flash
      backward each kernel, their sum, ``attention_bwd_ref`` and SDPA's
      backward (the yardstick) at the training shape, and the forward with
-     and without its log-sum-exp;
+     and without its log-sum-exp, and the same at recurrentgemma-2b's
+     training shape (head_dim 256); rglru_scan_bwd and the SSD backward's
+     kernels at their training shapes, each beside its plain version and its
+     bound, and the whole SSD backward;
   4. the main paths, each with the launch counts set to 0 just before it and
      read just after: ``repro_torch.launch.serve`` serves 8 requests of
      full-width qwen3-0.6b, then of full-width mamba2-780m, then of
@@ -65,7 +80,13 @@ Phases; any that fails ends the run with a non-zero exit:
      resume that starts at the saved step; kernel against plain in the
      model: one step's loss and every gradient leaf in f32 compute (gated),
      every layer's attention backward in bf16 (gated) and the bf16
-     gradients end to end (printed, not gated);
+     gradients end to end (printed, not gated); then the same launcher trains
+     full-width mamba2-780m (batch 4 x 2048) and recurrentgemma-2b (batch
+     1 x 2048, the largest of 1, 2, 4 under 70 GB) for 3 steps each with
+     their launches per step (``TRAIN_PATHS``) and finite losses, and the
+     same gates: one f32-compute step's loss and gradients (batch 1), every
+     layer's SSD, RG-LRU and attention backward in bf16, the bf16 gradients
+     printed;
   5. a JSON line per the kernel table, then the last line
      ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -148,8 +169,8 @@ PATHS = {
 }
 
 
-def train_argv(steps: int, *extra: str) -> list:
-    return ["--arch", "qwen3-0.6b", "--no-reduced", "--batch", str(BATCH),
+def train_argv(arch: str, steps: int, *extra: str) -> list:
+    return ["--arch", arch, "--no-reduced", "--batch", str(TRAIN_CELLS[arch][0]),
             "--seq", str(PROMPT), "--steps", str(steps), "--log-every", "1",
             *extra]
 
@@ -251,12 +272,59 @@ LSE_TOL = 1e-5
 BWD_KERNEL_NAMES = ("flash_attn_bwd_pre", "flash_attn_bwd_dkdv",
                     "flash_attn_bwd_dq")
 TRAIN_SHAPE = (4, 2048, 16, 8, 64, None, True)  # qwen3-0.6b training attention
-TRAIN_STEPS = 4
-# Launches per training step of qwen3-0.6b: each of 28 layers runs the
-# forward kernel twice (the step's forward and the recompute of its
-# rematerialised superblock in the backward) and each backward kernel once.
-TRAIN_LAUNCHES = {"flash_attn_fwd": 56, "flash_attn_bwd_pre": 28,
-                  "flash_attn_bwd_dkdv": 28, "flash_attn_bwd_dq": 28}
+# The training cells, (batch, steps) each, at 2048 tokens a row: batch 4 for
+# qwen3-0.6b and mamba2-780m (20.7 GB at its peak); recurrentgemma-2b at
+# batch 1 took 67.4-68.3 GB (NVIDIA H100 80GB HBM3, 700.00 W), so 1 is the
+# largest of 1, 2 and 4 that stays under 70 GB.  qwen3-0.6b's run is
+# followed by a checkpoint and resume, which take the same launcher path for
+# every model.
+TRAIN_CELLS = {"qwen3-0.6b": (4, 4), "mamba2-780m": (4, 3),
+               "recurrentgemma-2b": (1, 3)}
+# Launches per training step: each superblock's forward runs twice (the
+# step's forward and the rematerialised recompute in the backward), each
+# backward kernel once a layer.  qwen3-0.6b: 28 layers, each one superblock.
+# mamba2-780m: 48 SSM layers, each one superblock.  recurrentgemma-2b: 8
+# superblocks of (RG-LRU, RG-LRU, attention) and 2 RG-LRU tail layers
+# outside any superblock, so 16 x 2 + 2 = 34 scans, 18 scan backwards, 16
+# flash forwards, 8 of each flash backward.
+TRAIN_PATHS = {
+    "qwen3-0.6b": {"flash_attn_fwd": 56, "flash_attn_bwd_pre": 28,
+                   "flash_attn_bwd_dkdv": 28, "flash_attn_bwd_dq": 28},
+    "mamba2-780m": {"ssd_chunk_state": 96, "ssd_state_pass": 96,
+                    "ssd_chunk_scan": 96, "ssd_bwd_dstate": 48,
+                    "ssd_bwd_state_pass": 48, "ssd_bwd_chunk": 48},
+    "recurrentgemma-2b": {"rglru_scan": 34, "rglru_scan_bwd": 18,
+                          "flash_attn_fwd": 16, "flash_attn_bwd_pre": 8,
+                          "flash_attn_bwd_dkdv": 8, "flash_attn_bwd_dq": 8},
+}
+# The batch of the gradient gates, at full width and depth: qwen3-0.6b's
+# training batch; 1 for the recurrent models, since three f32 gradient sets
+# of recurrentgemma-2b's 2.89 B parameters are 35 GB and the plain SSD path
+# at batch 4 holds (4, 8, 48, 256, 256) f32 score tensors a layer.
+GRAD_BATCH = {"qwen3-0.6b": BATCH, "mamba2-780m": 1, "recurrentgemma-2b": 1}
+RG_TRAIN_SHAPE = (4, 2048, 10, 1, 256, 2048, True)  # recurrentgemma-2b's attention
+# rglru_scan_bwd against rglru_scan_bwd_ref: the same rounded sum and product
+# in the same order, so f32 agrees exactly (1e-5 abs + rel, RGLRU_TOL); bf16
+# da and du are rounded to bf16 once on both sides, one step (8e-3); dh0 is
+# f32.  The SSD backward's kernels against their plain versions from the
+# same inputs: both sides compute in f32 and differ in the order of sums; dS,
+# the chunk-end term, dx, ddt, dA, dB, dC and dD each sum over up to a
+# chunk's rows (dA and dD over the whole sequence, dB and dC also over the
+# heads of a group), so their tolerance is taken relative to the gradient's
+# largest magnitude, |err| <= tol + tol max|ref|, except dA's: it sums dt . rc
+# (rc the reverse cumsum of cum's gradient) over every row of the sequence,
+# terms far larger than dA itself (at (1, 512, 4, 64, 1, 128, 256) kernel and
+# plain version, both f32, differed by 1.6e-2, more than 1e-4 of max|dA|), so
+# its scale is the sum of its terms' magnitudes (``chunk_bwd_ref``'s dA_scale);
+# dchunk_in and dh0 come from an elementwise recurrence over the chunks: abs +
+# rel.  f32 inputs 1e-4;
+# bf16 inputs 2e-2 (tests/test_kernels.py::_tol's bf16 bound; dx is written
+# in bf16, one rounding).
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SSD_BWD_SCALED = ("dS", "end", "dx", "ddt", "dA", "dB", "dC", "dD")
+SSD_BWD_GRID = SSD_BF16_GRID + [SSD_SERVE + (True,)]  # the last: training
+SSD_BWD_KERNELS = ("ssd_bwd_dstate", "ssd_bwd_state_pass", "ssd_bwd_chunk")
+
 # One training step's loss and gradients, kernel path against the plain
 # path (impl="reference": autograd through attention_chunked), in f32
 # compute from the same weights and batch.  The paths differ only in the
@@ -303,8 +371,10 @@ def spill_gate(logs: dict) -> None:
     bytes of spill stores and loads in ptxas's report: the flash kernel's,
     one per head_dim its wrapper takes, and the SSD path's, ssd_chunk_state
     and ssd_chunk_scan at each (P, N) their wrappers take and
-    ssd_state_pass; and the same of the f32 flash kernel and of the flash
-    backward's three kernels, one per head_dim and type."""
+    ssd_state_pass; and the same of the f32 flash kernel, of the flash
+    backward's three kernels, one per head_dim and type, of the SSD
+    backward's three, one per (P, N) and type, and of the RG-LRU backward,
+    one per type."""
     import re
     from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
                                                             TC_BWD_HEAD_DIMS)
@@ -320,7 +390,12 @@ def spill_gate(logs: dict) -> None:
                 for name in ("dkdv", "dq")),
               ("ssd_bf16", "ssd_chunk_state_kernel", len(PN_PAIRS)),
               ("ssd_bf16", "ssd_chunk_scan_kernel", len(PN_PAIRS)),
-              ("ssd_bf16", "ssd_state_pass_kernel", 1))
+              ("ssd_bf16", "ssd_state_pass_kernel", 1),
+              # the backwards of the recurrent blocks, both input types each
+              ("ssd_bwd", "ssd_bwd_dstate_kernel", 2 * len(PN_PAIRS)),
+              ("ssd_bwd", "ssd_bwd_chunk_kernel", 2 * len(PN_PAIRS)),
+              ("ssd_bwd", "ssd_bwd_state_pass_kernel", 1),
+              ("rglru_scan", "rglru_scan_bwd_kernel", 2))
     for source, kernel, count in wanted:
         tc = [ln for ln in ptxas_summary(logs[source]) if kernel in ln]
         check(len(tc) == count, f"expected {count} {kernel} instantiations in "
@@ -835,6 +910,229 @@ def bwd_kernel_vs_plain(device) -> dict:
             "flash_attn_bwd_dq": errs["dq"]}
 
 
+def rglru_bwd_vs_plain(device) -> float:
+    """Phase 2 for rglru_scan_bwd: against ``rglru_scan_bwd_ref`` from the
+    same a, f32 states (the forward kernel's), h0, dh_seq and dh_final, over
+    rglru_scan's grid and the training shape, with and without dh_final.
+    Returns the max abs error at the training shape in f32 (the model's
+    gates are f32: the main path's case)."""
+    import torch
+    from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd,
+                                                       rglru_scan_fwd)
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+    err = None
+    for i, shape in enumerate(RGLRU_GRID + [RGLRU_SERVE]):
+        for name in ("bfloat16", "float32"):
+            for with_dhf in (True, False):
+                a, u, h0 = rglru_inputs(shape, getattr(torch, name), device,
+                                        seed=600 + i)
+                B, S, R = a.shape
+                g = torch.Generator(device).manual_seed(700 + i)
+                dh = torch.randn(B, S, R, generator=g, device=device).to(a.dtype)
+                dhf = torch.randn(B, R, generator=g, device=device) \
+                    if with_dhf else None
+                _, _, h_state = rglru_scan_fwd(a, u, h0, return_state=True)
+                got = rglru_scan_bwd(a, h_state, h0, dh, dhf)
+                torch.cuda.synchronize(device)
+                first = torch.zeros_like(h_state[:, :1]) if h0 is None \
+                    else h0[:, None]
+                ref = rglru_scan_bwd_ref(a, torch.cat([first, h_state[:, :-1]], 1),
+                                         dh, dhf)
+                errs = []
+                for what, o, r in zip(("da", "du", "dh0"), got, ref):
+                    tol = TOL[name] if name == "bfloat16" and what != "dh0" \
+                        else RGLRU_TOL
+                    check(o.dtype == r.dtype and o.shape == r.shape
+                          and bool(torch.isfinite(o).all()), f"bad {what}")
+                    e, excess = excess_error(o, r, tol)
+                    check(excess <= 0, f"rglru_scan_bwd {what} disagrees with "
+                          f"plain at {shape} {name} dh_final={with_dhf}: "
+                          f"max|err| {e:.3e} (tol {tol:g})")
+                    errs.append(e)
+                print(f"[kernel] rglru_scan_bwd {name} (B,S,R,h0,model a)={shape} "
+                      f"dh_final={with_dhf}: max|err| da {errs[0]:.3e}, du "
+                      f"{errs[1]:.3e}, dh0 {errs[2]:.3e} (tol f32 {RGLRU_TOL:g}, "
+                      f"bf16 da and du {TOL['bfloat16']:g}, abs + rel)")
+                if with_dhf:
+                    err = max(errs)  # f32 last: the main path's case
+    return err
+
+
+def ssd_bwd_case(shape, dtype, device, seed, with_h0, with_dhf):
+    """The forward's saved tensors (plain versions, f32) and a dy, dh_final
+    of one case: (x, dt, A, B, C, D, cum, h_ins, dy, dh_final)."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ref import (chunk_cumsum, pass_states,
+                                                  ssd_chunk_ref)
+    x, dt, A, B, C, D = ssd_inputs(shape, dtype, device, seed)
+    Bt, S, H, P, G, N, chunk = shape[:7]
+    g = torch.Generator(device).manual_seed(seed + 1)
+    h0 = torch.randn(Bt, H, P, N, generator=g, device=device) if with_h0 else None
+    dy = torch.randn(x.shape, generator=g, device=device).to(dtype)
+    dhf = torch.randn(Bt, H, P, N, generator=g, device=device) \
+        if with_dhf else None
+    cum = chunk_cumsum(dt, A, chunk)
+    _, chunk_in = ssd_chunk_ref(x, dt, cum, B, C, chunk=chunk)
+    h_ins, _ = pass_states(chunk_in, torch.exp(cum[:, chunk - 1::chunk]), h0)
+    return x, dt, A, B, C, D, cum, h_ins, dy, dhf
+
+
+def ssd_bwd_check(what, got, ref, name, where, scale=None) -> float:
+    """One SSD backward output against its plain version (SSD_BWD_TOL,
+    scaled to the largest |ref| for SSD_BWD_SCALED, or to ``scale`` where
+    given); returns max|err|."""
+    import torch
+    tol = SSD_BWD_TOL[name]
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+          f"bad SSD backward {what} at {where}")
+    d = (got.float() - ref.float()).abs()
+    if scale is None:
+        scale = ref.float().abs().max() if what in SSD_BWD_SCALED \
+            else ref.float().abs()
+    excess = (d - tol - tol * scale).max().item()
+    check(excess <= 0, f"SSD backward {what} disagrees with plain at {where}: "
+          f"max|err| {d.max().item():.3e} (tol {tol:g})")
+    return d.max().item()
+
+
+def ssd_bwd_vs_plain(device) -> dict:
+    """Phase 2 for the SSD backward: each kernel against its plain version
+    from the same inputs (ssd_bwd_dstate against ``chunk_dstate_ref``,
+    ssd_bwd_state_pass against ``state_pass_bwd_ref`` from the kernel's dS,
+    ssd_bwd_chunk against ``chunk_bwd_ref`` from the kernel's dchunk_in and
+    chunk-end term), over the bf16 path's grid and the training shape (the
+    model's A), with and without h0 and dh_final, f32 and bf16 x, B, C, dy.
+    Returns each kernel's max abs error at the training shape in bf16 (the
+    main path's case)."""
+    import torch
+    from repro_torch.kernels.ssd_scan.kernel import (ssd_bwd_chunk,
+                                                     ssd_bwd_dstate,
+                                                     ssd_bwd_state_pass)
+    from repro_torch.kernels.ssd_scan.ref import (chunk_bwd_ref,
+                                                  chunk_dstate_ref,
+                                                  state_pass_bwd_ref)
+    errs = {}
+    for i, shape in enumerate(SSD_BWD_GRID):
+        combos = ((True, True), (False, False)) if shape[1] >= 2048 else \
+            ((True, True), (True, False), (False, True), (False, False))
+        for name in ("float32", "bfloat16"):
+            for with_h0, with_dhf in combos:
+                x, dt, A, B, C, D, cum, h_ins, dy, dhf = ssd_bwd_case(
+                    shape, getattr(torch, name), device, 800 + i, with_h0,
+                    with_dhf)
+                chunk = shape[6]
+                got, ref = {}, {}
+                got["dS"] = ssd_bwd_dstate(dy, cum, C, chunk=chunk)
+                got["dchunk_in"], got["dh0"], got["end"] = ssd_bwd_state_pass(
+                    got["dS"], cum, h_ins, dhf, chunk=chunk)
+                outs = ssd_bwd_chunk(x, dt, A, cum, B, C, D, dy, h_ins,
+                                     got["dchunk_in"], got["end"], chunk=chunk)
+                got.update(zip(("dx", "ddt", "dA", "dB", "dC", "dD"), outs))
+                torch.cuda.synchronize(device)
+                ref["dS"] = chunk_dstate_ref(dy, cum, C, chunk=chunk)
+                ref["dchunk_in"], ref["dh0"], ref["end"] = state_pass_bwd_ref(
+                    got["dS"], cum, h_ins, dhf, chunk=chunk)
+                *grads, dA_scale = chunk_bwd_ref(
+                    x, dt, A, cum, B, C, D, dy, h_ins, got["dchunk_in"],
+                    got["end"], chunk=chunk, dA_scale=True)
+                ref.update(zip(("dx", "ddt", "dA", "dB", "dC", "dD"), grads))
+                check(got["dx"].dtype == x.dtype, "dx is not in x's dtype")
+                where = f"{shape} {name} h0={with_h0} dh_final={with_dhf}"
+                line = {w: ssd_bwd_check(w, got[w], ref[w], name, where,
+                                         dA_scale if w == "dA" else None)
+                        for w in got}
+                errs = line
+                print(f"[kernel] ssd backward {name} (Bt,S,H,P,G,N,chunk,model A)="
+                      f"{shape} h0={with_h0} dh_final={with_dhf}: min cum "
+                      f"{cum.min().item():.1f}, max|err| "
+                      + ", ".join(f"{w} {e:.3e}" for w, e in line.items())
+                      + f" (tol {SSD_BWD_TOL[name]:g}; {', '.join(SSD_BWD_SCALED)} "
+                      "relative to the largest |ref|, dA to the sum of its "
+                      f"terms' magnitudes, {dA_scale.max().item():.4e})")
+                del got, ref
+    # the last case: the training shape, bf16, no h0 or dh_final
+    return {"ssd_bwd_dstate": errs["dS"],
+            "ssd_bwd_state_pass": max(errs["dchunk_in"], errs["dh0"], errs["end"]),
+            "ssd_bwd_chunk": max(errs[w] for w in ("dx", "ddt", "dA", "dB", "dC",
+                                                   "dD"))}
+
+
+def functions_vs_autograd(device) -> None:
+    """``SSDScan`` through ``ops.ssd`` (also at a ragged length, through the
+    padding) and ``RGLRUScan`` through ``ops.rglru_scan`` with grad on:
+    their launches, and every input's gradient against autograd through
+    the plain versions from the same inputs, f32 and bf16, at the
+    tolerances of the kernels against their plain versions (the SSD's
+    scaled as SSD_BWD_TOL; the scan's 1e-5, bf16 one step)."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+    # the glue around the kernels, which phase 2 checks at every shape: the
+    # padding, G 2 and 3, a chunk that is not a multiple of 16
+    for shape in ((1, 80, 4, 16, 2, 16, 32, True), (1, 96, 6, 32, 3, 16, 24, True)):
+        for name in ("float32", "bfloat16"):
+            x, dt, A, B, C, D = ssd_inputs(shape, getattr(torch, name), device,
+                                           seed=900)
+            Bt, S, H, P, G, N, chunk = shape[:7]
+            g = torch.Generator(device).manual_seed(901)
+            h0 = torch.randn(Bt, H, P, N, generator=g, device=device)
+            dy = torch.randn(x.shape, generator=g, device=device).to(x.dtype)
+            dhf = torch.randn(h0.shape, generator=g, device=device)
+            grads = {}
+            for impl in ("auto", "reference"):
+                leaves = [t.clone().requires_grad_() for t in (x, dt, A, B, C, D, h0)]
+                LAUNCHES.clear()
+                y, h = ssd(*leaves[:6], chunk=chunk, h0=leaves[6], impl=impl)
+                grads[impl] = torch.autograd.grad([y, h], leaves, [dy, dhf])
+                torch.cuda.synchronize(device)
+                if impl == "auto":
+                    launches = dict(LAUNCHES)
+            fwd = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan") \
+                if name == "bfloat16" else ("ssd_chunk",)
+            check(launches == dict.fromkeys(fwd + SSD_BWD_KERNELS, 1),
+                  f"ops.ssd with grad launched {launches}")
+            line = {w: ssd_bwd_check(w, a, b, name, f"ops.ssd {shape} {name}")
+                    for w, a, b in zip(names, *grads.values())}
+            print(f"[kernel] SSDScan {name} through ops.ssd, S={S} chunk={chunk}"
+                  f" (padded: {S % chunk != 0}), vs autograd through "
+                  f"ssd_chunked_ref: launches {launches}; max|err| "
+                  + ", ".join(f"{w} {e:.3e}" for w, e in line.items()))
+    for shape in (RGLRU_GRID[3], RGLRU_SERVE):
+        for name in ("float32", "bfloat16"):
+            a, u, _ = rglru_inputs(shape, getattr(torch, name), device, seed=902)
+            B, S, R = a.shape
+            g = torch.Generator(device).manual_seed(903)
+            h0 = torch.randn(B, R, generator=g, device=device)
+            dh = torch.randn(a.shape, generator=g, device=device).to(a.dtype)
+            dhf = torch.randn(B, R, generator=g, device=device)
+            grads = {}
+            for impl in ("auto", "sequential"):
+                leaves = [t.clone().requires_grad_() for t in (a, u, h0)]
+                LAUNCHES.clear()
+                hs, hf = rglru_scan(*leaves, impl=impl)
+                grads[impl] = torch.autograd.grad([hs, hf], leaves, [dh, dhf])
+                torch.cuda.synchronize(device)
+                if impl == "auto":
+                    launches = dict(LAUNCHES)
+            check(launches == {"rglru_scan": 1, "rglru_scan_bwd": 1},
+                  f"ops.rglru_scan with grad launched {launches}")
+            errs = []
+            for what, got, ref in zip(("da", "du", "dh0"), *grads.values()):
+                tol = TOL[name] if name == "bfloat16" and what != "dh0" \
+                    else RGLRU_TOL
+                e, excess = excess_error(got, ref, tol)
+                check(got.dtype == ref.dtype and excess <= 0,
+                      f"RGLRUScan {what} disagrees with autograd at {shape} "
+                      f"{name}: max|err| {e:.3e}")
+                errs.append(e)
+            print(f"[kernel] RGLRUScan {name} through ops.rglru_scan "
+                  f"(B,S,R)={(B, S, R)} vs autograd through rglru_scan_ref: "
+                  f"launches {launches}; max|err| da {errs[0]:.3e}, du "
+                  f"{errs[1]:.3e}, dh0 {errs[2]:.3e}")
+
+
 def attention_bwd_bounds(shape) -> dict:
     """Least ms of each backward kernel and of the whole backward at a bf16
     ``shape``: each input read once, each output written once; the
@@ -853,8 +1151,10 @@ def attention_bwd_bounds(shape) -> dict:
     }
 
 
-def bwd_timing(device) -> dict:
-    """Phase 3 for the flash backward at the training shape (bf16, causal):
+def bwd_timing(device, shape=TRAIN_SHAPE) -> dict:
+    """Phase 3 for the flash backward at a training shape (bf16, causal; a
+    window that does not bite at S, so SDPA's causal mask computes the same
+    function):
     each kernel with its bound, registers and shared memory; plain_ms of
     flash_attn_bwd_pre is rowsum(dO o O) in PyTorch, of the other two
     ``attention_bwd_ref``, which computes dq, dk and dv together; no single
@@ -869,20 +1169,22 @@ def bwd_timing(device) -> dict:
         BWD_KERNELS, bwd_attributes, bwd_buffers, flash_attention_bwd,
         flash_attention_fwd, launch_bwd)
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
-    B, S, H, KH, hd, window, causal = TRAIN_SHAPE
-    q, k, v = qkv(TRAIN_SHAPE, torch.bfloat16, device, seed=97)
+    B, S, H, KH, hd, window, causal = shape
+    check(causal and (window is None or window >= S), "SDPA's mask differs")
+    q, k, v = qkv(shape, torch.bfloat16, device, seed=97)
     do = torch.randn(q.shape, generator=torch.Generator(device).manual_seed(96),
                      device=device).to(torch.bfloat16)
-    o, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
-    bufs = bwd_buffers(q, k, v, o, lse, do)
-    bounds = attention_bwd_bounds(TRAIN_SHAPE)
-    plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do), 3,
-                       warmup=1)
+    o, lse = flash_attention_fwd(q, k, v, causal=True, window=window,
+                                 return_lse=True)
+    bufs = bwd_buffers(q, k, v, o, lse, do, window=window)
+    bounds = attention_bwd_bounds(shape)
+    plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
+                                                 window=window), 3, warmup=1)
     out = {}
     for name in BWD_KERNELS:
         out[name] = {
             "ms": time_ms(lambda: launch_bwd(name, bufs, causal=True,
-                                             window=None), 20),
+                                             window=window), 20),
             "plain_ms": time_ms(lambda: (do.float() * o.float()).sum(-1), 20)
             if name == "flash_attn_bwd_pre" else plain_ms,
             "library_ms": None}
@@ -895,17 +1197,20 @@ def bwd_timing(device) -> dict:
                                         enable_gqa=True)
     dot = do.transpose(1, 2)
     whole = {
-        "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do), 20),
+        "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                  window=window), 20),
         "sum_ms": sum(out[name]["ms"] for name in BWD_KERNELS),
         "plain_ms": plain_ms,
         "library_ms": time_ms(lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True), 20),
-        "fwd_ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=True), 20),
+        "fwd_ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=True,
+                                                      window=window), 20),
         "fwd_with_lse_ms": time_ms(lambda: flash_attention_fwd(
-            q, k, v, causal=True, return_lse=True), 20),
+            q, k, v, causal=True, window=window, return_lse=True), 20),
     }
     whole["bound_ms"], whole["bound_by"] = bounds["whole"]
-    print("[timing] whole flash backward at the same shape (ms; sum_ms: its "
+    print(f"[timing] whole flash backward at B={B} S={S} H={H} KH={KH} hd={hd} "
+          "(ms; sum_ms: its "
           "three kernels timed apart; plain_ms: attention_bwd_ref; library_ms: "
           "SDPA's backward alone; fwd_ms and fwd_with_lse_ms: flash_attn_fwd "
           "without and with its log-sum-exp): "
@@ -915,49 +1220,188 @@ def bwd_timing(device) -> dict:
     return out
 
 
-def train_and_check(device) -> dict:
+def rglru_bwd_timing(device) -> dict:
+    """Phase 3 for rglru_scan_bwd at recurrentgemma-2b's training shape (f32,
+    as the model's gates give a and u).  No single PyTorch call computes the
+    gradient of a linear recurrence: library_ms is null.  The bound counts
+    a, the f32 states and dh_seq read once, da and du written once (and h0,
+    dh_final, dh0); 3 flops an element."""
+    import torch
+    from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd,
+                                                       rglru_scan_fwd)
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+    a, u, _ = rglru_inputs(RGLRU_SERVE, torch.float32, device, seed=97)
+    B, S, R = a.shape
+    g = torch.Generator(device).manual_seed(96)
+    dh = torch.randn(B, S, R, generator=g, device=device)
+    dhf = torch.randn(B, R, generator=g, device=device)
+    _, _, h_state = rglru_scan_fwd(a, u, return_state=True)
+    h_prev = torch.cat([torch.zeros_like(h_state[:, :1]), h_state[:, :-1]], 1)
+    out = {
+        "ms": time_ms(lambda: rglru_scan_bwd(a, h_state, None, dh, dhf), 50),
+        "plain_ms": time_ms(lambda: rglru_scan_bwd_ref(a, h_prev, dh, dhf), 3,
+                            warmup=1),
+        "library_ms": None,
+        "fwd_ms": time_ms(lambda: rglru_scan_fwd(a, u), 50),
+    }
+    out["bound_ms"], out["bound_by"] = bound(4 * (5 * B * S * R + 2 * B * R),
+                                             3 * B * S * R, PEAK_F32_FLOPS)
+    print(f"[timing] rglru_scan_bwd at B={B} S={S} R={R} f32 (no single PyTorch "
+          "call computes it: library_ms null; fwd_ms: rglru_scan in the same "
+          "run): " + ", ".join(f"{k} {v}" for k, v in out.items()))
+    return out
+
+
+def ssd_bwd_bounds(shape) -> dict:
+    """Least ms of each SSD backward kernel and of the whole SSD backward at
+    a bf16 ``shape`` (x, dy, B, C, dx bf16; the rest f32): each input read
+    once, each output written once; the products each needs, once (per
+    (batch, head, chunk) the causal dy.x^T and T^T.dy, Q(Q+1)/2 P products
+    each, and B.dchunk_in^T, x.dchunk_in and dy.h_in, Q P N each; per
+    (batch, group, chunk) C.B^T, dCB.B and dCB^T.C, Q(Q+1)/2 N each), at
+    the bf16 rate of their inputs' type."""
+    Bt, S, H, P, G, N, Q = shape
+    nc = S // Q
+    x, bc, f32 = 2 * Bt * S * H * P, 2 * Bt * S * G * N, 4 * Bt * S * H
+    states, per_chunk = 4 * Bt * nc * H * P * N, 4 * Bt * nc * H
+    causal = Q * (Q + 1) // 2
+    dstate_flops = 2 * Bt * nc * H * Q * P * N
+    chunk_flops = (2 * Bt * nc * H * (2 * causal * P + 3 * Q * P * N)
+                   + 2 * Bt * nc * G * 3 * causal * N)
+    f32_bc = 4 * Bt * S * G * N
+    return {
+        # dy, cum, C read; dS written
+        "ssd_bwd_dstate": bound(x + f32 + bc + states, dstate_flops),
+        # dS, h_ins and cum (the chunk ends) read (this run has no
+        # dh_final); dchunk_in, dh0 and the chunk-end term written
+        "ssd_bwd_state_pass": bound(
+            3 * states + per_chunk + states // nc + per_chunk,
+            4 * Bt * nc * H * P * N, PEAK_F32_FLOPS),
+        # x, dt, cum, B, C, dy, h_ins, dchunk_in, the chunk-end term read; dx,
+        # ddt, dB and dC (f32) written
+        "ssd_bwd_chunk": bound(2 * x + 2 * f32 + 2 * bc + 2 * states + per_chunk
+                               + x + f32 + 2 * f32_bc, chunk_flops),
+        # x, dt, cum, B, C, dy, h_ins read; dx, ddt, dB, dC, dh0 written
+        "whole": bound(2 * x + 2 * f32 + 2 * bc + states
+                       + x + f32 + 2 * f32_bc + states // nc,
+                       dstate_flops + chunk_flops),
+    }
+
+
+def ssd_bwd_timing(device) -> dict:
+    """Phase 3 for the SSD backward at mamba2-780m's training shape (bf16 x,
+    B, C, dy; the model's A): each kernel beside its plain version and its
+    bound, with its registers and shared bytes, then the whole backward
+    (the three wrappers, with the partial sums in PyTorch) beside autograd
+    through ``ssd_chunked_ref`` from the same inputs.  No single PyTorch
+    call computes any of them: library_ms null."""
+    import torch
+    from repro_torch.kernels.ssd_scan.kernel import (bwd_attributes,
+                                                     ssd_bwd_chunk,
+                                                     ssd_bwd_dstate,
+                                                     ssd_bwd_state_pass)
+    from repro_torch.kernels.ssd_scan.ref import (chunk_bwd_ref,
+                                                  chunk_dstate_ref,
+                                                  ssd_chunked_ref,
+                                                  state_pass_bwd_ref)
+    x, dt, A, B, C, D, cum, h_ins, dy, dhf = ssd_bwd_case(
+        SSD_SERVE + (True,), torch.bfloat16, device, 95, False, False)
+    chunk = SSD_SERVE[6]
+    dS = ssd_bwd_dstate(dy, cum, C, chunk=chunk)
+    dchunk_in, _, end = ssd_bwd_state_pass(dS, cum, h_ins, chunk=chunk)
+    runs = {
+        "ssd_bwd_dstate": (lambda: ssd_bwd_dstate(dy, cum, C, chunk=chunk),
+                           lambda: chunk_dstate_ref(dy, cum, C, chunk=chunk)),
+        "ssd_bwd_state_pass": (
+            lambda: ssd_bwd_state_pass(dS, cum, h_ins, chunk=chunk),
+            lambda: state_pass_bwd_ref(dS, cum, h_ins, chunk=chunk)),
+        "ssd_bwd_chunk": (
+            lambda: ssd_bwd_chunk(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in,
+                                  end, chunk=chunk),
+            lambda: chunk_bwd_ref(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in,
+                                  end, chunk=chunk)),
+    }
+    bounds = ssd_bwd_bounds(SSD_SERVE)
+    out = {}
+    for name, (fast, plain) in runs.items():
+        out[name] = {"ms": time_ms(fast, 10), "plain_ms": time_ms(plain, 2, warmup=1),
+                     "library_ms": None}
+        out[name]["bound_ms"], out[name]["bound_by"] = bounds[name]
+        out[name].update(bwd_attributes(name, *SSD_SERVE[3:6:2], torch.bfloat16))
+        print(f"[timing] {name} at Bt=4 S=2048 H=48 P=64 G=1 N=128 chunk=256 "
+              "bf16 (no single PyTorch call computes it: library_ms null): "
+              + ", ".join(f"{k} {v}" for k, v in out[name].items()))
+
+    def kernels():
+        s = ssd_bwd_dstate(dy, cum, C, chunk=chunk)
+        dci, _, e = ssd_bwd_state_pass(s, cum, h_ins, chunk=chunk)
+        return ssd_bwd_chunk(x, dt, A, cum, B, C, D, dy, h_ins, dci, e,
+                             chunk=chunk)
+
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, B, C, D)]
+    y_ref, _ = ssd_chunked_ref(*leaves, chunk=chunk)
+    whole = {"ms": time_ms(kernels, 10),
+             "plain_ms": time_ms(lambda: torch.autograd.grad(
+                 y_ref, leaves, dy, retain_graph=True), 2, warmup=1)}
+    whole["bound_ms"], whole["bound_by"] = bounds["whole"]
+    del y_ref, leaves
+    print("[timing] whole SSD backward at the same shape (ms; the three kernels "
+          "and the partial sums; plain_ms: autograd through ssd_chunked_ref): "
+          + ", ".join(f"{k} {v}" for k, v in whole.items()))
+    out["ssd_bwd_chunk"]["whole_backward"] = whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_and_check(device, arch: str) -> dict:
     """Phase 4 for training: ``repro_torch.launch.train`` on full-width
-    qwen3-0.6b, its launches per step (``TRAIN_LAUNCHES``, nothing else),
-    finite losses, then a checkpoint at step 2 and a resume that starts
-    there.  Returns the run's numbers and launch counts."""
+    ``arch`` (batch and steps from TRAIN_CELLS, random weights), its
+    launches per step (``TRAIN_PATHS[arch]``, nothing else) and finite
+    losses; after qwen3-0.6b's run a checkpoint at step 2 and a resume that
+    starts there.  Returns the run's numbers and launch counts."""
     import math
     import tempfile
     import torch
     from repro_torch.kernels import LAUNCHES
     from repro_torch.launch import train
 
+    batch, steps = TRAIN_CELLS[arch]
+    want = TRAIN_PATHS[arch]
     LAUNCHES.clear()
-    stats = train.main(train_argv(TRAIN_STEPS))
+    stats = train.main(train_argv(arch, steps))
     launches = dict(LAUNCHES)
     del stats["state"]
-    check(stats["arch"] == "qwen3-0.6b", "train did not run the full-width config")
+    check(stats["arch"] == arch, "train did not run the full-width config")
     for i, per_step in enumerate(stats["launches"]):
-        check(per_step == TRAIN_LAUNCHES, f"training step {i + 1} launched "
-              f"{per_step}, expected {TRAIN_LAUNCHES}")
-    check(launches == {k: n * TRAIN_STEPS for k, n in TRAIN_LAUNCHES.items()},
-          f"training launched {launches}")
-    check(len(stats["losses"]) == TRAIN_STEPS
+        check(per_step == want, f"{arch} training step {i + 1} launched "
+              f"{per_step}, expected {want}")
+    check(launches == {k: n * steps for k, n in want.items()},
+          f"{arch} training launched {launches}")
+    check(len(stats["losses"]) == steps
           and all(math.isfinite(x) for x in stats["losses"]),
-          f"training losses {stats['losses']}")
+          f"{arch} training losses {stats['losses']}")
     stats["tokens_per_s"] = [stats["tokens_per_step"] / (ms / 1e3)
                              for ms in stats["step_ms"]]
     print("[train] " + json.dumps(stats))
-    print(f"[train] launches per step: {stats['launches'][0]}; step ms "
+    print(f"[train] {arch} batch {batch} x {PROMPT}: launches per step "
+          f"{stats['launches'][0]}; losses {stats['losses']}; step ms "
           f"{stats['step_ms']}, tokens/s {stats['tokens_per_s']}, peak memory "
           f"{stats['max_memory_allocated']} bytes")
-    with tempfile.TemporaryDirectory() as ckpt:
-        first = train.main(train_argv(2, "--checkpoint-dir", ckpt,
-                                      "--checkpoint-every", "1000"))
-        del first["state"]
-        resumed = train.main(train_argv(3, "--checkpoint-dir", ckpt))
-        del resumed["state"]
-    check(resumed["start_step"] == 2 and len(resumed["losses"]) == 1
-          and math.isfinite(resumed["losses"][0]),
-          f"the resumed run started at {resumed['start_step']} with losses "
-          f"{resumed['losses']}")
-    print(f"[train] checkpoint at step 2 and resume: the resumed run starts at "
-          f"step {resumed['start_step']}; its loss {resumed['losses'][0]:.6f}, "
-          f"the uninterrupted run's at that step {stats['losses'][2]:.6f}")
+    if arch == "qwen3-0.6b":
+        with tempfile.TemporaryDirectory() as ckpt:
+            first = train.main(train_argv(arch, 2, "--checkpoint-dir", ckpt,
+                                          "--checkpoint-every", "1000"))
+            del first["state"]
+            resumed = train.main(train_argv(arch, 3, "--checkpoint-dir", ckpt))
+            del resumed["state"]
+        check(resumed["start_step"] == 2 and len(resumed["losses"]) == 1
+              and math.isfinite(resumed["losses"][0]),
+              f"the resumed run started at {resumed['start_step']} with losses "
+              f"{resumed['losses']}")
+        print(f"[train] checkpoint at step 2 and resume: the resumed run starts "
+              f"at step {resumed['start_step']}; its loss "
+              f"{resumed['losses'][0]:.6f}, the uninterrupted run's at that step "
+              f"{stats['losses'][2]:.6f}")
     torch.cuda.empty_cache()
     return {"launches": launches, "stats": stats}
 
@@ -984,40 +1428,47 @@ def worst_leaf(got: dict, ref: dict) -> tuple:
 
 
 @contextlib.contextmanager
-def ulp_noise_in_attention():
-    """The plain path with one f32 ulp of relative noise in each attention
-    output: a deterministic function of the output, so the rematerialised
-    recompute sees the same noise as the forward."""
+def ulp_noise(cfg):
+    """The plain path with one f32 ulp of relative noise in the output of its
+    SSD intra term (mamba2-780m), its RG-LRU scan (recurrentgemma-2b) or its
+    attention (the dense models): the spread of the plain path against
+    itself, a floor for kernel vs plain.  The noise is a function of the
+    output, so a rematerialised recompute sees what the forward saw."""
     import torch
-    from repro_torch.models import layers
-    plain = layers.flash_attention
+    if cfg.ssm:
+        from repro_torch.kernels.ssd_scan import ref as module
+        name = "ssd_chunk_ref"
+    elif "rglru" in cfg.layer_kinds:
+        from repro_torch.kernels.rglru_scan import ops as module
+        name = "rglru_scan_assoc"
+    else:
+        from repro_torch.models import layers as module
+        name = "flash_attention"
+    plain = getattr(module, name)
 
     def noisy(*args, **kwargs):
-        o = plain(*args, **kwargs)
-        return o * (1 + 2 ** -23 * torch.sin(1e4 * o.detach()))
+        out = plain(*args, **kwargs)
+        y, rest = (out[0], out[1:]) if isinstance(out, tuple) else (out, None)
+        y = y * (1 + 2 ** -23 * torch.sin(1e4 * y.detach()))
+        return y if rest is None else (y, *rest)
 
-    layers.flash_attention = noisy
+    setattr(module, name, noisy)
     try:
         yield
     finally:
-        layers.flash_attention = plain
+        setattr(module, name, plain)
 
 
-def bf16_layer_grad_parity(cfg, params, batch) -> int:
-    """Every layer's attention backward in bf16 compute, kernel against
-    plain: a training step along the plain path whose attention, in the
-    backward, also runs the forward kernel and the backward kernels on that
-    layer's q, k, v and dO and compares their gradients with autograd
-    through the plain attention, at the bf16 kernel tolerance.  The
-    backward is linear in dO, so both take dO scaled to a largest |dO| of
-    1, where an absolute tolerance means something.  Returns the number of
-    layers compared."""
+def attention_both(plain, worst: dict, seen: list):
+    """A stand-in for ``layers.flash_attention`` whose forward is the plain
+    attention and whose backward also runs the forward kernel and the
+    backward kernels on the layer's q, k, v and dO and compares their
+    gradients with autograd through the plain attention, at the bf16 kernel
+    tolerance.  The backward is linear in dO, so both take dO scaled to a
+    largest |dO| of 1, where an absolute tolerance means something."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
                                                             flash_attention_fwd)
-    from repro_torch.models import layers
-    plain = layers.flash_attention
-    worst, seen = {"dq": 0.0, "dk": 0.0, "dv": 0.0}, []
 
     class Both(torch.autograd.Function):
         @staticmethod
@@ -1050,64 +1501,184 @@ def bf16_layer_grad_parity(cfg, params, batch) -> int:
     def both(q, k, v, *, causal, window, impl):
         return Both.apply(q, k, v, causal, window)
 
-    layers.flash_attention = both
+    return both
+
+
+def ssd_both(plain, worst: dict, seen: list):
+    """A stand-in for ``ssm.ssd`` whose forward is the plain SSD and whose
+    backward also runs ``SSDScan`` (the forward and backward kernels) on the
+    layer's inputs and compares its gradients with autograd through the
+    plain SSD, dy scaled to a largest |dy| of 1, at the SSD backward's bf16
+    tolerance (``ssd_bwd_check``)."""
+    import torch
+    from repro_torch.kernels.ssd_scan.ops import SSDScan
+
+    class Both(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dt, A, B, C, D, chunk):
+            ctx.save_for_backward(x, dt, A, B, C, D)
+            ctx.chunk = chunk
+            ctx.set_materialize_grads(False)
+            return plain(x, dt, A, B, C, D, chunk=chunk, impl="reference")
+
+        @staticmethod
+        def backward(ctx, dy, dh):
+            check(dh is None, "the final state of a training step has a gradient")
+            unit = (dy.float() / dy.float().abs().max().clamp_min(1e-30)).to(dy.dtype)
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+                y, _ = plain(*leaves, chunk=ctx.chunk, impl="reference")
+                ref = torch.autograd.grad(y, leaves, unit, retain_graph=True)
+                grads = torch.autograd.grad(y, leaves, dy)
+                y_k, _ = SSDScan.apply(*leaves, None, ctx.chunk)
+                got = torch.autograd.grad(y_k, leaves, unit)
+            for what, g, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, ref):
+                check(g.dtype == r.dtype, f"SSD {what} dtype {g.dtype}")
+                worst[what] = max(worst.get(what, 0.0), ssd_bwd_check(
+                    what, g, r, "bfloat16", f"layer {len(seen)}"))
+            seen.append(leaves[0].dtype)
+            return (*grads, None)
+
+    def both(x, dt, A, B, C, D, *, chunk, impl):
+        return Both.apply(x, dt, A, B, C, D, chunk)
+
+    return both
+
+
+def scan_both(plain, worst: dict, seen: list):
+    """A stand-in for ``rglru.rglru_scan`` whose forward is the plain scan
+    and whose backward also runs ``RGLRUScan`` (the scan kernel and its
+    backward) on the layer's a and u and compares their gradients with
+    autograd through the plain scan, dh_seq scaled to a largest |dh| of 1,
+    within 2e-2 abs + rel."""
+    import torch
+    from repro_torch.kernels.rglru_scan.ops import RGLRUScan
+
+    class Both(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a, u):
+            ctx.save_for_backward(a, u)
+            ctx.set_materialize_grads(False)
+            hs, h_final = plain(a, u, None, impl="reference")
+            return hs, h_final.clone()  # not a view of hs
+
+        @staticmethod
+        def backward(ctx, dhs, dhf):
+            check(dhf is None, "the final state of a training step has a gradient")
+            unit = dhs / dhs.abs().max().clamp_min(1e-30)
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+                hs, _ = plain(*leaves, None, impl="reference")
+                ref = torch.autograd.grad(hs, leaves, unit, retain_graph=True)
+                grads = torch.autograd.grad(hs, leaves, dhs)
+                hs_k, _ = RGLRUScan.apply(*leaves, None)
+                got = torch.autograd.grad(hs_k, leaves, unit)
+            for what, g, r in zip(("da", "du"), got, ref):
+                err, excess = excess_error(g, r, BWD_TOL["bfloat16"])
+                check(g.dtype == r.dtype and bool(torch.isfinite(g).all())
+                      and excess <= 0, f"layer {len(seen)}: RG-LRU {what} of the "
+                      f"kernels disagrees with plain (max|err| {err:.3e})")
+                worst[what] = max(worst.get(what, 0.0), err)
+            seen.append(leaves[0].dtype)
+            return grads
+
+    def both(a, u, h0=None, *, impl):
+        check(h0 is None, "a training step's scan starts from zeros")
+        return Both.apply(a, u)
+
+    return both
+
+
+def layer_grad_parity(cfg, params, batch) -> dict:
+    """Every layer's attention, SSD and RG-LRU backward in bf16 compute,
+    kernels against autograd through the plain versions, on the plain path's
+    activations of one training step (``attention_both``, ``ssd_both``,
+    ``scan_both``), each layer of its kind once (``TRAIN_PATHS``).  Returns
+    the number of layers compared, by kind."""
+    import torch
+    from repro_torch.models import layers, rglru, ssm
+    worst, seen = {"dq": 0.0, "dk": 0.0, "dv": 0.0}, {"ssd": [], "rglru": [],
+                                                     "attention": []}
+    saved = (ssm.ssd, rglru.rglru_scan, layers.flash_attention)
+    ssm.ssd = ssd_both(saved[0], worst, seen["ssd"])
+    rglru.rglru_scan = scan_both(saved[1], worst, seen["rglru"])
+    layers.flash_attention = attention_both(saved[2], worst, seen["attention"])
     try:
         train_grads(cfg, params, batch, "reference")
     finally:
-        layers.flash_attention = plain
-    check(seen == [torch.bfloat16] * cfg.n_layers,
-          f"expected {cfg.n_layers} bf16 attention backwards, saw {seen}")
-    print(f"[parity] {cfg.name} every layer's attention backward in bf16, "
-          f"kernels vs autograd through the plain attention on the plain "
-          f"path's activations ({len(seen)} layers, dO at unit scale): "
-          f"max|err| dq {worst['dq']:.3e}, dk {worst['dk']:.3e}, dv "
-          f"{worst['dv']:.3e} (tol {BWD_TOL['bfloat16']:g} abs + rel)")
-    return len(seen)
+        ssm.ssd, rglru.rglru_scan, layers.flash_attention = saved
+    counts = {k: len(v) for k, v in seen.items()}
+    want = TRAIN_PATHS[cfg.name]
+    check(counts == {"ssd": want.get("ssd_bwd_chunk", 0),
+                     "rglru": want.get("rglru_scan_bwd", 0),
+                     "attention": want.get("flash_attn_bwd_dq", 0)},
+          f"{cfg.name}: layer backwards compared {counts}")
+    check(set(seen["ssd"] + seen["attention"]) == {torch.bfloat16},
+          f"{cfg.name}: the compared layers did not run in bf16")
+    shown = [k for kind, keys in (("ssd", ("dx", "ddt", "dA", "dB", "dC", "dD")),
+                                  ("rglru", ("da", "du")),
+                                  ("attention", ("dq", "dk", "dv")))
+             if counts[kind] for k in keys]
+    print(f"[parity] {cfg.name} every layer's backward in bf16, kernels vs "
+          f"autograd through the plain versions on the plain path's "
+          f"activations ({counts}, the output gradient at unit scale): max|err| "
+          + ", ".join(f"{k} {worst[k]:.3e}" for k in shown)
+          + f" (tol {BWD_TOL['bfloat16']:g}; the SSD's as SSD_BWD_TOL)")
+    return counts
 
 
-def grad_parity(device) -> dict:
-    """Kernel against plain in the model at full width: one training step
-    of qwen3-0.6b from the same weights and batch, in f32 compute (loss and
+def grad_parity(device, arch: str) -> dict:
+    """Kernel against plain in the model at full width and depth, one batch
+    of GRAD_BATCH[arch] x 2048: one training step in f32 compute (loss and
     every gradient leaf gated at GRAD_RTOL of the leaf's largest |grad|,
-    the plain path's spread under one f32 ulp printed beside it), then every
-    layer's attention backward in bf16 (gated), then the bf16 gradients end
-    to end (printed, not gated).  Returns the f32-compute run's launches."""
-    import dataclasses
+    the plain path's spread under one f32 ulp of noise printed beside it),
+    every layer's backward in bf16 (gated), the bf16 gradients end to end
+    (printed, not gated).  Returns the f32-compute run's launches."""
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.data.pipeline import SyntheticTokens, shard_batch
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models.lm import init_params
 
-    cfg = ARCHS["qwen3-0.6b"]
+    cfg = ARCHS[arch]
     params = init_params(cfg, torch.Generator(device).manual_seed(0),
                          trainable=True).tree()
-    batch = shard_batch(SyntheticTokens(cfg.vocab, BATCH, PROMPT).next_batch(),
-                        device)
+    batch = shard_batch(SyntheticTokens(cfg.vocab, GRAD_BATCH[arch], PROMPT)
+                        .next_batch(), device)
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     LAUNCHES.clear()
     loss_k, g_k = train_grads(cfg32, params, batch, "auto")
     launches = dict(LAUNCHES)
-    loss_p, g_p = train_grads(cfg32, params, batch, "reference")
-    with ulp_noise_in_attention():
-        loss_n, g_n = train_grads(cfg32, params, batch, "reference")
-    check(launches == TRAIN_LAUNCHES, f"f32-compute step launched {launches}")
     check(all(bool(torch.isfinite(g).all()) for g in g_k.values()),
-          "f32-compute gradients of the kernel path are not finite")
+          f"{arch}: f32-compute gradients of the kernel path are not finite")
+    loss_p, g_p = train_grads(cfg32, params, batch, "reference")
     worst, key = worst_leaf(g_k, g_p)
+    del g_k
+    with ulp_noise(cfg32):
+        loss_n, g_n = train_grads(cfg32, params, batch, "reference")
     floor, floor_key = worst_leaf(g_n, g_p)
-    print(f"[parity] {cfg.name} float32 full-width training step, kernels vs "
-          f"plain: loss {loss_k:.7f} vs {loss_p:.7f} (|diff| "
-          f"{abs(loss_k - loss_p):.3e}); gradients, max over {len(g_p)} leaves "
-          f"of max|diff| / max|grad|: {worst:.3e} at {key} (tol {GRAD_RTOL:g}); "
-          f"plain vs plain with one f32 ulp of noise in its attention output "
-          f"{floor:.3e} at {floor_key} (loss |diff| {abs(loss_n - loss_p):.3e})")
+    del g_n, g_p
+    want = dict(TRAIN_PATHS[arch])
+    if cfg.ssm:  # f32 x, B, C take the f32 path: ssd_chunk and PyTorch glue
+        for name in ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"):
+            want.pop(name)
+        want["ssd_chunk"] = TRAIN_PATHS[arch]["ssd_chunk_scan"]
+    check(launches == want, f"{arch} f32-compute step launched {launches}, "
+          f"expected {want}")
+    term = "SSD intra term" if cfg.ssm else "RG-LRU scan output" \
+        if "rglru" in cfg.layer_kinds else "attention output"
+    print(f"[parity] {cfg.name} float32 full-width training step (batch "
+          f"{GRAD_BATCH[arch]} x {PROMPT}), kernels vs plain: loss {loss_k:.7f} "
+          f"vs {loss_p:.7f} (|diff| {abs(loss_k - loss_p):.3e}); gradients, max "
+          f"over leaves of max|diff| / max|grad|: {worst:.3e} at {key} (tol "
+          f"{GRAD_RTOL:g}); plain vs plain with one f32 ulp of noise in its "
+          f"{term} {floor:.3e} at {floor_key} (loss |diff| "
+          f"{abs(loss_n - loss_p):.3e})")
     check(abs(loss_k - loss_p) <= GRAD_RTOL * abs(loss_p),
-          "f32-compute losses of the kernel and plain paths disagree")
-    check(worst <= GRAD_RTOL, "f32-compute gradients of the kernel and plain "
-          "paths disagree")
-    del g_k, g_p, g_n
-    bf16_layer_grad_parity(cfg, params, batch)
+          f"{arch}: f32-compute losses of the kernel and plain paths disagree")
+    check(worst <= GRAD_RTOL, f"{arch}: f32-compute gradients of the kernel "
+          "and plain paths disagree")
+    layer_grad_parity(cfg, params, batch)
     loss_k, g_k = train_grads(cfg, params, batch, "auto")
     loss_p, g_p = train_grads(cfg, params, batch, "reference")
     worst, key = worst_leaf(g_k, g_p)
@@ -1168,34 +1739,6 @@ def prefill_logits(cfg, model, batch, impl: str):
         return make_prefill_step(cfg, impl=impl)(model, batch)[0][:, -1]
 
 
-@contextlib.contextmanager
-def ulp_noise_in_plain(cfg, device):
-    """The plain path with one f32 ulp of relative noise in the f32 output of
-    its SSD intra term (mamba2-780m) or of its RG-LRU scan (recurrentgemma-
-    2b): the spread of the plain path against itself, a floor for kernel vs
-    plain."""
-    import torch
-    if cfg.ssm:
-        from repro_torch.kernels.ssd_scan import ref as module
-        name = "ssd_chunk_ref"
-    else:
-        from repro_torch.kernels.rglru_scan import ops as module
-        name = "rglru_scan_assoc"
-    plain = getattr(module, name)
-    g = torch.Generator(device).manual_seed(5)
-
-    def noisy(*args, **kwargs):
-        y, rest = plain(*args, **kwargs)
-        noise = torch.randn(y.shape, generator=g, device=y.device)
-        return y * (1 + 2 ** -23 * noise), rest
-
-    setattr(module, name, noisy)
-    try:
-        yield
-    finally:
-        setattr(module, name, plain)
-
-
 def logit_parity(cfg, model, batch, tol, device) -> None:
     """Last-position logits of one full-width prefill through the kernel and
     through the plain version; gated when ``tol`` is given."""
@@ -1211,7 +1754,7 @@ def logit_parity(cfg, model, batch, tol, device) -> None:
     gaps = [round(g, 4) for g in (top2[:, 0] - top2[:, 1]).tolist()]
     floor = ""
     if cfg.ssm or "rglru" in cfg.layer_kinds:
-        with ulp_noise_in_plain(cfg, device):
+        with ulp_noise(cfg):
             noisy = prefill_logits(cfg, model, batch, "reference")
         term = "SSD term" if cfg.ssm else "RG-LRU scan output"
         floor = (f", plain vs plain with one f32 ulp of noise in its {term} "
@@ -1348,11 +1891,19 @@ def main() -> int:
     ssd_bf16_time = ssd_bf16_timing(device)
     rglru_time = rglru_timing(device)
     bwd_errs = bwd_kernel_vs_plain(device)
+    rglru_bwd_err = rglru_bwd_vs_plain(device)
+    ssd_bwd_errs = ssd_bwd_vs_plain(device)
+    functions_vs_autograd(device)
     bwd_time = bwd_timing(device)
+    rg_bwd_time = bwd_timing(device, RG_TRAIN_SHAPE)
+    rglru_bwd_time = rglru_bwd_timing(device)
+    ssd_bwd_time = ssd_bwd_timing(device)
     launches = {arch: serve_and_check(device, arch) for arch in PATHS}
-    trained = train_and_check(device)
-    launches["qwen3-0.6b training"] = trained["launches"]
-    launches["qwen3-0.6b training"]["f32 compute"] = grad_parity(device)
+    for arch in TRAIN_CELLS:
+        key = f"{arch} training"
+        launches[key] = train_and_check(device, arch)["launches"]
+        launches[key]["f32 compute"] = grad_parity(device, arch)
+    trained_launches = [n for k, n in launches.items() if k.endswith("training")]
 
     flash_shapes = [
         {"shape": list(shape), "path": arch,
@@ -1364,6 +1915,12 @@ def main() -> int:
         "shape": list(TRAIN_SHAPE), "path": "qwen3-0.6b training",
         "launches": launches["qwen3-0.6b training"]["flash_attn_fwd"],
         "ms_with_lse": bwd_time["flash_attn_bwd_dq"]["whole_backward"][
+            "fwd_with_lse_ms"]})
+    flash_shapes.append({
+        "shape": list(RG_TRAIN_SHAPE), "path": "recurrentgemma-2b training",
+        "launches": launches["recurrentgemma-2b training"]["flash_attn_fwd"],
+        "ms": rg_bwd_time["flash_attn_bwd_dq"]["whole_backward"]["fwd_ms"],
+        "ms_with_lse": rg_bwd_time["flash_attn_bwd_dq"]["whole_backward"][
             "fwd_with_lse_ms"]})
     flash_bwd = [{
         "name": name, "route": "cuda",
@@ -1383,9 +1940,38 @@ def main() -> int:
             "flash_attn_bwd_dq": "a block per (batch x head, 64 queries) walks "
                                  "the key tiles; bf16 at hd 16 and 64: tensor "
                                  "cores as dkdv; f32: CUDA cores"}[name],
-        "launches": launches["qwen3-0.6b training"].get(name, 0),
-        "max_abs_err": bwd_errs[name], **bwd_time[name]}
+        # over both training paths that run it; times at qwen3-0.6b's shape,
+        # recurrentgemma-2b's (head_dim 256) under "shapes"
+        "launches": sum(n.get(name, 0) for n in trained_launches),
+        "max_abs_err": bwd_errs[name], **bwd_time[name],
+        "shapes": [{"shape": list(RG_TRAIN_SHAPE),
+                    "path": "recurrentgemma-2b training",
+                    "launches": launches["recurrentgemma-2b training"].get(name, 0),
+                    **rg_bwd_time[name]}]}
         for name in BWD_KERNEL_NAMES]
+    ssd_bwd = [{
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_bwd.cu",
+        # no TPU kernel computes a gradient: these are the gradient of the
+        # forward's TPU kernel and its state passing
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:48",
+        "note": "no TPU counterpart: the gradient of ssd_chunk_pallas and its "
+                "state passing",
+        "design": {
+            "ssd_bwd_dstate": "a block per (batch x chunk, head): tiles of 32 "
+                              "rows, exp(cum) dy^T C on the CUDA cores, f32",
+            "ssd_bwd_state_pass": "reverse recurrence over the chunks, 4 "
+                                  "elements a thread, block partials of the "
+                                  "chunk-end term",
+            "ssd_bwd_chunk": "a block per (batch x chunk, 4 heads of a group): "
+                             "32-row tiles, dCB summed over the heads in the "
+                             "block, dx in shared memory, dB and dC block "
+                             "partials summed by PyTorch; CUDA cores, f32"}[name],
+        "launches": launches["mamba2-780m training"].get(name, 0),
+        "f32_compute_launches":
+            launches["mamba2-780m training"]["f32 compute"].get(name, 0),
+        "max_abs_err": ssd_bwd_errs[name], **ssd_bwd_time[name]}
+        for name in SSD_BWD_KERNELS]
     ssd_bf16 = [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_bf16.cu",
@@ -1409,7 +1995,7 @@ def main() -> int:
         "design": "bf16: tensor cores (mma.sync m16n8k16 bf16 -> f32, ldmatrix "
                   "from swizzled shared memory, two cp.async K/V stages, P in "
                   "registers); f32: CUDA cores",
-        # over both paths that run it; times at qwen3-0.6b's shape, each
+        # over every path that runs it; times at qwen3-0.6b's shape, each
         # serving shape's own under "shapes"
         "launches": sum(n.get("flash_attn_fwd", 0) for n in launches.values()),
         "max_abs_err": max(errs.values()), "lse_max_abs_err": bwd_errs["lse"],
@@ -1429,7 +2015,18 @@ def main() -> int:
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:41",
         "launches": launches["recurrentgemma-2b"].get("rglru_scan", 0),
-        "max_abs_err": rglru_err, **rglru_time}, *flash_bwd]}))
+        "training_launches":
+            launches["recurrentgemma-2b training"].get("rglru_scan", 0),
+        "max_abs_err": rglru_err, **rglru_time}, *flash_bwd, {
+        "name": "rglru_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:41",
+        "note": "no TPU counterpart: the gradient of rglru_scan_pallas",
+        "design": "one thread per (batch, channel) walking t backward, 16 "
+                  "steps of loads in flight, f32",
+        "launches": launches["recurrentgemma-2b training"].get(
+            "rglru_scan_bwd", 0),
+        "max_abs_err": rglru_bwd_err, **rglru_bwd_time}, *ssd_bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": 1}}))  # the smoke drives cuda:0 alone

@@ -8,7 +8,8 @@ u_t = sqrt(1 − a_t²) · i_t ⊙ x_t):
 
 ``rglru_scan_ref`` is the sequential f32 loop, the oracle the CUDA kernel is
 held against; ``rglru_scan_assoc`` is a log-depth scan, the plain path of the
-model (the JAX package's path off the TPU).
+model (the JAX package's path off the TPU).  ``rglru_scan_bwd_ref`` is the
+reverse loop of the gradient, the oracle of the CUDA backward kernel.
 """
 from __future__ import annotations
 
@@ -44,3 +45,25 @@ def rglru_scan_assoc(a, u, h0=None):
         af = torch.cat([af[:, :d], af[:, :-d] * af[:, d:]], dim=1)
         d *= 2
     return uf.to(u.dtype), uf[:, -1]
+
+
+def rglru_scan_bwd_ref(a, h_prev, dh_seq, dh_final=None):
+    """The gradient of the recurrence, the reverse loop in f32:
+
+        g_{S-1} = dh_seq_{S-1} + dh_final,   g_t = dh_seq_t + a_{t+1} g_{t+1}
+        du_t = g_t,   da_t = g_t h_{t-1},   dh0 = a_0 g_0
+
+    a, dh_seq: (B, S, R); h_prev: (B, S, R) f32, the state entering each step
+    (h0 or zeros, then h_0 .. h_{S-2}); dh_final: (B, R) f32 or None.
+    Returns (da, du) in a's dtype and dh0 (B, R) f32.  Each step is one
+    rounded f32 sum and one rounded product, in that order, as in
+    ``rglru_scan_ref``."""
+    af, dhf = a.float(), dh_seq.float()
+    carry = torch.zeros_like(af[:, 0]) if dh_final is None else dh_final.float()
+    da, du = torch.empty_like(af), torch.empty_like(af)
+    for t in reversed(range(a.shape[1])):
+        g = dhf[:, t] + carry
+        du[:, t] = g
+        da[:, t] = g * h_prev[:, t]
+        carry = af[:, t] * g
+    return da.to(a.dtype), du.to(a.dtype), carry

@@ -6,6 +6,10 @@
 - ``ssd_chunk_state``, ``ssd_state_pass`` and ``ssd_chunk_scan``
   (``csrc/ssd_bf16.cu``): the whole SSD for bf16 inputs, its products on the
   tensor cores, y written once; ``ops.ssd`` takes them for bf16 inputs.
+- ``ssd_bwd_dstate``, ``ssd_bwd_state_pass`` and ``ssd_bwd_chunk``
+  (``csrc/ssd_bwd.cu``): the gradient of the whole SSD in either input type,
+  on the CUDA cores in f32; ``ops.SSDScan`` runs them.  They have no TPU
+  counterpart: the JAX package differentiates its jnp path.
 
 On a CPU tensor each wrapper computes its kernel's plain version (``ref``);
 on a CUDA tensor it checks its inputs, launches the kernel and counts the
@@ -20,8 +24,8 @@ import torch
 
 from .. import LAUNCHES
 from ..build import load
-from .ref import (chunk_cumsum, chunk_scan_ref, chunk_state_ref, pass_states,
-                  ssd_chunk_ref)
+from .ref import (chunk_bwd_ref, chunk_cumsum, chunk_dstate_ref, chunk_scan_ref,
+                  chunk_state_ref, pass_states, ssd_chunk_ref, state_pass_bwd_ref)
 
 NAME = "ssd_chunk"
 BF16_LIBRARY = "ssd_bf16"
@@ -35,6 +39,14 @@ MAX_CHUNK = 256
 # (tools/ssd_tune.py, PERF.md).
 STATE_HEAD_BLOCK = 6
 SCAN_HEAD_BLOCK = 12
+BWD_LIBRARY = "ssd_bwd"
+BWD_KERNELS = ("ssd_bwd_dstate", "ssd_bwd_state_pass", "ssd_bwd_chunk")
+# Heads a block of ssd_bwd_chunk walks (at most 4, as in the .cu file); dB
+# and dC are summed over them in the block, and over the head blocks by
+# PyTorch.  The fastest of 1..4 at mamba2-780m's training shape on the H100
+# (tools/ssd_bwd_tune.py, PERF.md).
+BWD_HEAD_BLOCK = 3
+_BWD_PASS_THREADS = 256  # state elements / 4 a block of ssd_bwd_state_pass covers
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_X = 2 ** 31 - 1
 _MAX_GRID_Y = 65535
@@ -231,6 +243,135 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
             C.data_ptr(), D.data_ptr(), h_ins.data_ptr(), y.data_ptr(),
             Bt, S, H, G, P, N, chunk, SCAN_HEAD_BLOCK, device=x.device)
     return y
+
+
+def ssd_bwd_dstate(dy: torch.Tensor, cum: torch.Tensor, C: torch.Tensor, *,
+                   chunk: int) -> torch.Tensor:
+    """dy: (Bt, S, H, P); cum: (Bt, S, H) f32; C: (Bt, S, G, N) in dy's type.
+
+    Returns dS (Bt, S/chunk, H, P, N) f32, each chunk's gradient of its
+    incoming state through the carry (``chunk_dstate_ref``)."""
+    if dy.device.type == "cpu":
+        return chunk_dstate_ref(dy, cum, C, chunk=chunk)
+    _check(dy, cum, cum, C, C, chunk)
+    Bt, S, H, P = dy.shape
+    if Bt * (S // chunk) * H > _MAX_GRID_X:
+        raise ValueError(f"{Bt * (S // chunk) * H} blocks exceed the kernel's grid")
+    _check_device(dy, cum, C, aligned=False)
+    dS = torch.empty(Bt, S // chunk, H, P, C.shape[3], dtype=torch.float32,
+                     device=dy.device)
+    _launch("ssd_bwd_dstate", _function(BWD_LIBRARY, "ssd_bwd_dstate", 4, 8),
+            dy.data_ptr(), cum.data_ptr(), C.data_ptr(), dS.data_ptr(), Bt, S, H,
+            C.shape[2], P, C.shape[3], chunk, _DTYPES[dy.dtype], device=dy.device)
+    return dS
+
+
+def ssd_bwd_state_pass(dS: torch.Tensor, cum: torch.Tensor, h_ins: torch.Tensor,
+                       dh_final: torch.Tensor | None = None, *, chunk: int):
+    """dS, h_ins: (Bt, nc, H, P, N) f32; cum: (Bt, nc * chunk, H) f32;
+    dh_final: (Bt, H, P, N) f32 or None (zeros).
+
+    Returns (dchunk_in (Bt, nc, H, P, N), dh0 (Bt, H, P, N), end_term
+    (Bt, nc, H)), f32: the reverse scan over the chunks
+    (``state_pass_bwd_ref``); the kernel writes end_term's partial sums, one
+    per block, and PyTorch adds them."""
+    if dS.device.type == "cpu":
+        return state_pass_bwd_ref(dS, cum, h_ins, dh_final, chunk=chunk)
+    if dS.dim() != 5 or cum.dim() != 3:
+        raise ValueError("dS must be (Bt, nc, H, P, N), cum (Bt, S, H)")
+    Bt, nc, H, P, N = dS.shape
+    if h_ins.shape != dS.shape or cum.shape != (Bt, nc * chunk, H) \
+            or not 1 <= chunk <= MAX_CHUNK or (P * N) % 4:
+        raise ValueError(f"shapes do not match: dS {tuple(dS.shape)}, h_ins "
+                         f"{tuple(h_ins.shape)}, cum {tuple(cum.shape)}, chunk "
+                         f"{chunk} (1..{MAX_CHUNK}; P*N a multiple of 4)")
+    if dh_final is not None and dh_final.shape != (Bt, H, P, N):
+        raise ValueError(f"dh_final must be {(Bt, H, P, N)}, got "
+                         f"{tuple(dh_final.shape)}")
+    if any(t.dtype != torch.float32 for t in (dS, cum, h_ins, dh_final)
+           if t is not None):
+        raise TypeError("dS, cum, h_ins and dh_final must be float32")
+    parts = -(-(P * N // 4) // _BWD_PASS_THREADS)
+    if Bt * H > _MAX_GRID_X or parts > _MAX_GRID_Y:
+        raise ValueError(f"Bt*H={Bt * H}, {parts} parts exceed the kernel's grid")
+    _check_device(dS, cum, h_ins, dh_final)
+    dchunk_in = torch.empty_like(dS)
+    dh0 = torch.empty(Bt, H, P, N, dtype=torch.float32, device=dS.device)
+    end_part = torch.empty(Bt, nc, H, parts, dtype=torch.float32, device=dS.device)
+    _launch("ssd_bwd_state_pass",
+            _function(BWD_LIBRARY, "ssd_bwd_state_pass", 7, 6),
+            dS.data_ptr(), cum.data_ptr(), h_ins.data_ptr(),
+            None if dh_final is None else dh_final.data_ptr(),
+            dchunk_in.data_ptr(), dh0.data_ptr(), end_part.data_ptr(), Bt,
+            nc * chunk, H, P, N, chunk, device=dS.device)
+    return dchunk_in, dh0, end_part.sum(-1)
+
+
+def ssd_bwd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  cum: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                  D: torch.Tensor, dy: torch.Tensor, h_ins: torch.Tensor,
+                  dchunk_in: torch.Tensor, end_term: torch.Tensor, *,
+                  chunk: int):
+    """x, dy: (Bt, S, H, P); dt, cum: (Bt, S, H) f32; A, D: (H,) f32; B, C:
+    (Bt, S, G, N) in x's type; h_ins, dchunk_in: (Bt, nc, H, P, N) f32;
+    end_term: (Bt, nc, H) f32.
+
+    Returns (dx in x's dtype, ddt (Bt, S, H), dA (H,), dB, dC (Bt, S, G, N),
+    dD (H,)), the rest f32 (``chunk_bwd_ref``); the kernel writes dB, dC, dA
+    and dD as partial sums, one per head block (dB, dC) or per (batch,
+    chunk) (dA, dD), and PyTorch adds them."""
+    if x.device.type == "cpu":
+        dx, *rest = chunk_bwd_ref(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in,
+                                  end_term, chunk=chunk)
+        return (dx.to(x.dtype), *rest)
+    _check(x, dt, cum, B, C, chunk)
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc = S // chunk
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if A.shape != (H,) or D.shape != (H,) or end_term.shape != (Bt, nc, H) \
+            or h_ins.shape != (Bt, nc, H, P, N) or dchunk_in.shape != h_ins.shape:
+        raise ValueError(f"A and D must be ({H},), end_term {(Bt, nc, H)}, h_ins "
+                         f"and dchunk_in {(Bt, nc, H, P, N)}")
+    if any(t.dtype != torch.float32 for t in (A, D, h_ins, dchunk_in, end_term)):
+        raise TypeError("A, D, h_ins, dchunk_in and end_term must be float32")
+    _check_grid(x, B, chunk, BWD_HEAD_BLOCK)
+    _check_device(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in, end_term,
+                  aligned=False)
+    nhb = -(-(H // G) // BWD_HEAD_BLOCK)
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    dB_part = torch.empty(nhb, Bt, S, G, N, dtype=torch.float32, device=x.device)
+    dC_part = torch.zeros_like(dB_part)
+    dA_part = torch.empty(Bt, nc, H, dtype=torch.float32, device=x.device)
+    dD_part = torch.empty_like(dA_part)
+    _launch("ssd_bwd_chunk", _function(BWD_LIBRARY, "ssd_bwd_chunk", 17, 9),
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), cum.data_ptr(),
+            B.data_ptr(), C.data_ptr(), D.data_ptr(), dy.data_ptr(),
+            h_ins.data_ptr(), dchunk_in.data_ptr(), end_term.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
+            dA_part.data_ptr(), dD_part.data_ptr(), Bt, S, H, G, P, N, chunk,
+            BWD_HEAD_BLOCK, _DTYPES[x.dtype], device=x.device)
+    return (dx, ddt, dA_part.sum((0, 1)), dB_part.sum(0), dC_part.sum(0),
+            dD_part.sum((0, 1)))
+
+
+def bwd_attributes(kernel: str, P: int, N: int, dtype: torch.dtype) -> dict:
+    """Registers, local bytes (spills and stack) and shared bytes of a
+    compiled SSD backward kernel at (P, N) and input type, by
+    ``cudaFuncGetAttributes``."""
+    fn = getattr(load(BWD_LIBRARY), "ssd_bwd_attributes")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = fn(BWD_KERNELS.index(kernel), P, N, _DTYPES[dtype],
+             *(ctypes.byref(v) for v in vals))
+    if err:
+        raise RuntimeError(f"ssd_bwd_attributes failed with CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes"),
+                    (v.value for v in vals)))
 
 
 def attributes(kernel: str, P: int, N: int) -> dict:

@@ -9,17 +9,61 @@ nowhere else):
   carry and D skip; the products on the tensor cores), y written once;
 - f32: ``_intra_then_pass``, the CUDA-core intra-chunk kernel with the state
   passing, carry and D skip in PyTorch.
+Where a gradient is wanted on the card, ``SSDScan`` pairs either path with
+the backward kernels (``csrc/ssd_bwd.cu``); on the CPU the plain versions
+are differentiated by autograd, as the reference differentiates its jnp path
+off its accelerator.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .kernel import ssd_chunk, ssd_chunk_scan, ssd_chunk_state, ssd_state_pass
+from .kernel import (ssd_bwd_chunk, ssd_bwd_dstate, ssd_bwd_state_pass,
+                     ssd_chunk, ssd_chunk_scan, ssd_chunk_state, ssd_state_pass)
 from .ref import (chunk_cumsum, combine, pass_states, ssd_chunked_ref,
                   ssd_decode_step, ssd_ref)
 
-__all__ = ["ssd", "ssd_decode_step"]
+__all__ = ["SSDScan", "ssd", "ssd_decode_step"]
+
+
+class SSDScan(torch.autograd.Function):
+    """The whole SSD through the kernels, S % chunk == 0: the forward runs
+    ``_fused`` (bf16) or ``_intra_then_pass`` (f32) and saves x, dt, A, B, C,
+    D, the within-chunk cumsum and the state entering each chunk (f32); the
+    backward launches ``ssd_bwd_dstate``, ``ssd_bwd_state_pass`` and
+    ``ssd_bwd_chunk`` on them (the wrappers' plain versions on a CPU
+    tensor) and returns the gradients of x, dt, A, B, C, D and h0."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0, chunk: int):
+        x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
+        dtf, Af, Df = (t.float().contiguous() for t in (dt, A, D))
+        path = _fused if x.dtype == torch.bfloat16 else _intra_then_pass
+        y, h_final, cum, h_ins = path(x, dtf, Af, B, C, Df, chunk=chunk, h0=h0)
+        ctx.save_for_backward(x, dtf, Af, B, C, Df, cum, h_ins)
+        ctx.chunk, ctx.has_h0 = chunk, h0 is not None
+        ctx.dtypes = (dt.dtype, A.dtype, D.dtype)
+        ctx.set_materialize_grads(False)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        x, dt, A, B, C, D, cum, h_ins = ctx.saved_tensors
+        chunk = ctx.chunk
+        dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype).contiguous()
+        if dh_final is not None:
+            dh_final = dh_final.float().contiguous()
+        dS = ssd_bwd_dstate(dy, cum, C, chunk=chunk)
+        dchunk_in, dh0, end = ssd_bwd_state_pass(dS, cum, h_ins, dh_final,
+                                                 chunk=chunk)
+        dx, ddt, dA, dB, dC, dD = ssd_bwd_chunk(x, dt, A, cum, B, C, D, dy,
+                                                h_ins, dchunk_in, end,
+                                                chunk=chunk)
+        dt_dtype, A_dtype, D_dtype = ctx.dtypes
+        return (dx, ddt.to(dt_dtype), dA.to(A_dtype), dB.to(B.dtype),
+                dC.to(C.dtype), dD.to(D_dtype), dh0 if ctx.has_h0 else None,
+                None)
 
 
 def ssd(x, dt, A, B, C, D, *, chunk: int = 256, h0=None, impl: str = "auto"):
@@ -28,8 +72,9 @@ def ssd(x, dt, A, B, C, D, *, chunk: int = 256, h0=None, impl: str = "auto"):
     (Bt, H, P, N) f32).
 
     ``impl="auto"``: the kernels' wrappers (``_fused`` for bf16,
-    ``_intra_then_pass`` for f32); ``"reference"``: ``ssd_chunked_ref``;
-    ``"sequential"``: ``ssd_ref``."""
+    ``_intra_then_pass`` for f32), through ``SSDScan`` when grad is enabled
+    and an input on the card requires it; ``"reference"``:
+    ``ssd_chunked_ref``; ``"sequential"``: ``ssd_ref``."""
     if impl not in ("auto", "reference", "sequential"):
         raise ValueError(f"unknown impl {impl!r}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -48,13 +93,16 @@ def ssd(x, dt, A, B, C, D, *, chunk: int = 256, h0=None, impl: str = "auto"):
         return y[:, :S], h
     if impl == "reference":
         return ssd_chunked_ref(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+    if x.device.type != "cpu" and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, B, C, D, h0)):
+        return SSDScan.apply(x, dt, A, B, C, D, h0, chunk)
     path = _fused if x.dtype == torch.bfloat16 else _intra_then_pass
-    return path(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+    return path(x, dt, A, B, C, D, chunk=chunk, h0=h0)[:2]
 
 
 def _fused(x, dt, A, B, C, D, *, chunk: int, h0=None):
     """bf16, S % chunk == 0: ``ssd_chunk_state``, ``ssd_state_pass`` and
-    ``ssd_chunk_scan``."""
+    ``ssd_chunk_scan``.  Returns (y, h_final, cum, h_ins)."""
     dtf = dt.float().contiguous()
     x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
     chunk_in, cum = ssd_chunk_state(x, dtf, A.float().contiguous(), B,
@@ -64,17 +112,19 @@ def _fused(x, dt, A, B, C, D, *, chunk: int, h0=None):
         chunk=chunk)
     y = ssd_chunk_scan(x, dtf, cum, B, C, D.float().contiguous(), h_ins,
                        chunk=chunk)
-    return y, h_final
+    return y, h_final, cum, h_ins
 
 
 def _intra_then_pass(x, dt, A, B, C, D, *, chunk: int, h0=None):
     """S % chunk == 0: the intra-chunk kernel ``ssd_chunk``, then the state
     passing, carry and D skip in PyTorch (the f32 path; in bf16 the path
-    that ``_fused`` replaced, kept for f32 and for comparison)."""
+    that ``_fused`` replaced, kept for f32 and for comparison).  Returns
+    (y, h_final, cum, h_ins)."""
     dtf = dt.float().contiguous()
     cum = chunk_cumsum(dtf, A, chunk)
     y_intra, chunk_in = ssd_chunk(x.contiguous(), dtf, cum, B.contiguous(),
                                   C.contiguous(), chunk=chunk)
     h_ins, h_final = pass_states(chunk_in, torch.exp(cum[:, chunk - 1::chunk]),
                                  h0)
-    return combine(x, y_intra, C, h_ins, cum, D, chunk=chunk), h_final
+    return (combine(x, y_intra, C, h_ins, cum, D, chunk=chunk), h_final, cum,
+            h_ins)

@@ -1,9 +1,11 @@
 """Training launcher (``repro/launch/train.py``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --no-reduced --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m --no-reduced --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 20
 
-Trains a dense LM on deterministic synthetic tokens with AdamW, periodic
+Trains an LM (dense, Mamba2 or RG-LRU hybrid) on deterministic synthetic
+tokens with AdamW, periodic
 asynchronous checkpoints and restart-resume (a resumed run replays the data
 stream from the saved step).  Runs on ``cuda`` unless ``--device cpu`` is
 given; without a card it raises rather than fall back.  ``--reduced``

@@ -8,11 +8,11 @@ loop here.  Decode caches are stacked along the same dimension.
 Modes: "train" (full sequence, no cache; each superblock rematerialised in
 the backward when ``cfg.remat``), "prefill" (full sequence, returns the
 cache) and "decode" (one token against the cache, updated in place).  Dense
-(attention), Mamba2 (ssm) and RG-LRU (rglru) blocks are ported for serving,
-with the layers before and after the stack (``dec/pre{i}``, ``dec/tail{i}``);
-dense blocks also train.  ``model_defs`` covers every architecture, so
-parameter counts hold for all of them; the blocks of the other families
-raise ``NotImplementedError`` until their slice of the port.
+(attention), Mamba2 (ssm) and RG-LRU (rglru) blocks are ported for all three
+modes, with the layers before and after the stack (``dec/pre{i}``,
+``dec/tail{i}``).  ``model_defs`` covers every architecture, so parameter
+counts hold for all of them; the blocks of the other families raise
+``NotImplementedError`` until their slice of the port.
 """
 from __future__ import annotations
 
@@ -37,11 +37,6 @@ NOT_PORTED = {
     "moe": "a later slice (mixture of experts)",
     "xdense": "a later slice (encoder-decoder)",
 }
-# block kinds that serve but do not train yet: their kernels have no backward
-NOT_TRAINED = {
-    "ssm": "a later slice (the SSD backward kernel)",
-    "rglru": "a later slice (the RG-LRU backward kernel)",
-}
 
 
 # --------------------------------------------------------------- structure
@@ -65,16 +60,12 @@ def structure(cfg: ArchConfig):
     return pre, (rest[0],), len(rest), ()
 
 
-def _check_ported(cfg: ArchConfig, mode: str = "prefill") -> None:
+def _check_ported(cfg: ArchConfig) -> None:
     for kind in layer_kinds(cfg):
         if kind in NOT_PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: {kind} blocks are not ported yet; they come "
                 f"with {NOT_PORTED[kind]}")
-        if mode == "train" and kind in NOT_TRAINED:
-            raise NotImplementedError(
-                f"{cfg.name}: {kind} blocks do not train yet; they train "
-                f"with {NOT_TRAINED[kind]}")
 
 
 def block_defs(cfg: ArchConfig, kind: str, d_ff_override: Optional[int] = None):
@@ -247,7 +238,7 @@ def forward(params, cfg: ArchConfig, tokens, *, mode: str, cache=None,
     cache: from ``init_cache`` or a prefill, updated in place by decode."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: the port runs (train, prefill, decode)")
-    _check_ported(cfg, mode)
+    _check_ported(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     pre, sb_kinds, n_super, tail = structure(cfg)
     x = params["embed"][tokens].to(cdt)

@@ -59,23 +59,26 @@ def _gates(p, xc):
 def rglru_block(p, x, cfg: ArchConfig, mode: str, cache=None, impl="auto"):
     """x: (B, S, D) (S == 1 for decode).  Returns (y, cache).
 
-    Prefill returns a new cache; decode updates ``cache`` in place and
-    returns it, which stands in for the reference's donated cache buffer."""
+    Train returns no cache; prefill returns a new cache; decode updates
+    ``cache`` in place and returns it, which stands in for the reference's
+    donated cache buffer."""
     B, S, _ = x.shape
     W = cfg.conv_width
     xb = x @ p["wx"].to(x.dtype)
     gate = F.gelu(x @ p["wgate"].to(x.dtype), approximate="tanh")
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         xc = causal_conv(xb, p["conv_w"], p["conv_b"])  # no activation
         a, u = _gates(p, xc)
         hs, h_final = rglru_scan(a, u, h0=None, impl=impl)
         y = hs.to(x.dtype)
-        # The last W - 1 pre-conv inputs, left-padded with zeros for a prompt
-        # shorter than that (the reference keeps a short window there and its
-        # next decode step fails).
-        conv = F.pad(xb, (0, 0, max(0, W - 1 - S), 0))[:, -(W - 1):]
-        cache = {"conv": conv.contiguous(), "h": h_final}
+        cache = None
+        if mode == "prefill":
+            # The last W - 1 pre-conv inputs, left-padded with zeros for a
+            # prompt shorter than that (the reference keeps a short window
+            # there and its next decode step fails).
+            conv = F.pad(xb, (0, 0, max(0, W - 1 - S), 0))[:, -(W - 1):]
+            cache = {"conv": conv.contiguous(), "h": h_final}
     elif mode == "decode":
         xb_full = torch.cat([cache["conv"].to(xb.dtype), xb], dim=1)  # (B, W, R)
         xc = torch.einsum("bwc,wc->bc", xb_full, p["conv_w"].to(x.dtype))
@@ -86,7 +89,8 @@ def rglru_block(p, x, cfg: ArchConfig, mode: str, cache=None, impl="auto"):
         cache["h"].copy_(h)
         cache["conv"].copy_(xb_full[:, 1:])  # xb_full is a new tensor: no overlap
     else:
-        raise ValueError(f"mode {mode!r}: the port serves (prefill, decode)")
+        raise ValueError(f"mode {mode!r}: the port runs (train, prefill, "
+                         "decode)")
 
     y = y * gate
     return y @ p["out"].to(x.dtype), cache

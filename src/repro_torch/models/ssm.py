@@ -71,27 +71,30 @@ def _split_conv(cu, cfg: ArchConfig, batch_shape):
 def ssm_block(p, x, cfg: ArchConfig, mode: str, cache=None, impl="auto"):
     """x: (B, S, D) (S == 1 for decode).  Returns (y, cache).
 
-    Prefill returns a new cache; decode updates ``cache`` in place and
-    returns it, which stands in for the reference's donated cache buffer."""
+    Train returns no cache; prefill returns a new cache; decode updates
+    ``cache`` in place and returns it, which stands in for the reference's
+    donated cache buffer."""
     B, S, _ = x.shape
     d_inner, H, G, N, W, conv_ch = _dims(cfg)
     z, u, dt_raw = _projections(p, x, cfg)
     A = -torch.exp(p["A_log"].float())
     Dskip = p["D"].float()
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         cu = _causal_conv(u, p["conv_w"], p["conv_b"])
         xc, Bc, Cc = _split_conv(cu, cfg, (B, S))
         dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
         y, h_final = ssd(xc.reshape(B, S, H, cfg.ssm_headdim), dt, A, Bc, Cc,
                          Dskip, chunk=cfg.ssd_chunk, impl=impl)
         y = y.reshape(B, S, d_inner)
-        # The last W - 1 pre-conv inputs.  A prompt shorter than that is
-        # left-padded with zeros, the causal conv's history before the first
-        # token (the reference keeps a short window there and its next decode
-        # step fails).
-        conv = F.pad(u, (0, 0, max(0, W - 1 - S), 0))[:, -(W - 1):]
-        cache = {"conv": conv.contiguous(), "state": h_final}
+        cache = None
+        if mode == "prefill":
+            # The last W - 1 pre-conv inputs.  A prompt shorter than that is
+            # left-padded with zeros, the causal conv's history before the
+            # first token (the reference keeps a short window there and its
+            # next decode step fails).
+            conv = F.pad(u, (0, 0, max(0, W - 1 - S), 0))[:, -(W - 1):]
+            cache = {"conv": conv.contiguous(), "state": h_final}
     elif mode == "decode":
         u_full = torch.cat([cache["conv"].to(u.dtype), u], dim=1)  # (B, W, C)
         cu = torch.einsum("bwc,wc->bc", u_full, p["conv_w"].to(u.dtype))
@@ -105,7 +108,8 @@ def ssm_block(p, x, cfg: ArchConfig, mode: str, cache=None, impl="auto"):
         cache["state"].copy_(h_new)
         cache["conv"].copy_(u_full[:, 1:])  # u_full is a new tensor: no overlap
     else:
-        raise ValueError(f"mode {mode!r}: the port serves (prefill, decode)")
+        raise ValueError(f"mode {mode!r}: the port runs (train, prefill, "
+                         "decode)")
 
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.norm_eps)
     return y @ p["out"].to(x.dtype), cache

@@ -20,7 +20,13 @@ CPU.  The flash backward's kernels against ``attention_bwd_ref`` from the
 same inputs: 1e-4 on f32 gradients (sums of up to S or G·S terms in another
 order), 2e-2 on bf16 ones (one rounding of each output, and of P and dS
 where a kernel rounds them for its products), 1e-5 on D and on the
-forward's log-sum-exp against ``lse_ref``.
+forward's log-sum-exp against ``lse_ref``.  The RG-LRU backward against
+``rglru_scan_bwd_ref``: 1e-5 in f32 (the same rounded sum and product in the
+same order), one bf16 step (8e-3) on bf16 da and du.  The SSD backward's
+kernels against their plain versions from the same inputs: 1e-4 in f32 and
+2e-2 in bf16 inputs, taken relative to each gradient's largest magnitude for
+the gradients that sum over a chunk's rows (all but dchunk_in and dh0, which
+come from an elementwise recurrence over the chunks).
 """
 import numpy as np
 import pytest
@@ -38,14 +44,18 @@ from repro_torch.kernels.flash_attention.kernel import (BWD_KERNELS, HEAD_DIMS,
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref, lse_ref)
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd, rglru_scan_fwd
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref, rglru_scan_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-from repro_torch.kernels.ssd_scan.kernel import ssd_chunk
+from repro_torch.kernels.ssd_scan.kernel import (ssd_bwd_chunk, ssd_bwd_dstate,
+                                                 ssd_bwd_state_pass, ssd_chunk)
 from repro_torch.kernels.ssd_scan.ops import ssd
-from repro_torch.kernels.ssd_scan.ref import (chunk_cumsum, chunk_scan_ref,
+from repro_torch.kernels.ssd_scan.ref import (chunk_bwd_ref, chunk_cumsum,
+                                              chunk_dstate_ref, chunk_scan_ref,
                                               chunk_state_ref, pass_states,
-                                              ssd_chunk_ref)
+                                              ssd_chunk_ref, ssd_chunked_ref,
+                                              state_pass_bwd_ref)
 from repro_torch.models import ssm
 from repro_torch.models.lm import LM, init_params
 from repro_torch.models.params import flatten, unflatten
@@ -481,3 +491,221 @@ def test_reduced_train_step_on_card_matches_cpu(cuda_device, arch):
     for key in c:
         np.testing.assert_allclose(_np(g[key]), _np(c[key]), rtol=0, atol=1.2e-5,
                                    err_msg=key)
+
+
+@pytest.mark.parametrize("dhf", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,R,h0,model_a", RGLRU_SHAPES)
+def test_rglru_bwd_kernel_vs_plain_on_card(cuda_device, B, S, R, h0, model_a,
+                                           dtype, dhf):
+    """rglru_scan_bwd (one launch) against rglru_scan_bwd_ref from the same
+    a, f32 states, h0, dh_seq and dh_final."""
+    a, u, h = _rglru_inputs(cuda_device, dtype, B, S, R, h0, model_a, seed=S * R)
+    rng = np.random.default_rng(S)
+    dh = torch.from_numpy(rng.normal(size=(B, S, R)).astype(np.float32)).to(
+        cuda_device, dtype)
+    dh_final = torch.from_numpy(rng.normal(size=(B, R)).astype(np.float32)).to(
+        cuda_device) if dhf else None
+    _, _, h_state = rglru_scan_fwd(a, u, h, return_state=True)
+    before = LAUNCHES["rglru_scan_bwd"]
+    got = rglru_scan_bwd(a, h_state, h, dh, dh_final)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rglru_scan_bwd"] == before + 1
+    first = torch.zeros_like(h_state[:, :1]) if h is None else h[:, None]
+    ref = rglru_scan_bwd_ref(a, torch.cat([first, h_state[:, :-1]], 1), dh,
+                             dh_final)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == r.dtype and bool(torch.isfinite(g).all())
+        tol = dict(rtol=8e-3, atol=8e-3) if dtype == torch.bfloat16 and i < 2 \
+            else RGLRU_TOL
+        np.testing.assert_allclose(_np(g), _np(r), **tol)
+
+
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SSD_BWD_ELEMENTWISE = ("dchunk_in", "dh0")
+
+
+def _ssd_bwd_close(what, got, ref, dtype, scale=None):
+    """abs + rel, relative to the largest |ref| (or to ``scale``: dA's, the
+    sum of its terms' magnitudes, ``chunk_bwd_ref``'s dA_scale), elementwise
+    for SSD_BWD_ELEMENTWISE."""
+    tol = SSD_BWD_TOL[dtype]
+    got, ref = _np(got), _np(ref)
+    if scale is None:
+        scale = np.abs(ref) if what in SSD_BWD_ELEMENTWISE else np.abs(ref).max()
+    else:
+        scale = _np(scale)
+    assert got.shape == ref.shape and np.isfinite(got).all(), what
+    assert (np.abs(got - ref) - tol - tol * scale).max() <= 0, what
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk,model_a", SSD_BF16_SHAPES)
+def test_ssd_bwd_kernels_vs_plain_on_card(cuda_device, Bt, S, H, P, G, N, chunk,
+                                          model_a, dtype, with_h0):
+    """ssd_bwd_dstate, ssd_bwd_state_pass and ssd_bwd_chunk (one launch
+    each) against their plain versions from the same inputs, dh_final given
+    with h0 and not without."""
+    x, dt, A, B, C, D = _ssd_inputs(cuda_device, dtype, Bt, S, H, P, G, N,
+                                    model_a, seed=S + H + 1)
+    rng = np.random.default_rng(S + N)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda_device)
+    h0 = f(Bt, H, P, N) if with_h0 else None
+    dhf = f(Bt, H, P, N) if with_h0 else None
+    dy = f(Bt, S, H, P).to(dtype)
+    cum = chunk_cumsum(dt, A, chunk)
+    _, chunk_in = ssd_chunk_ref(x, dt, cum, B, C, chunk=chunk)
+    h_ins, _ = pass_states(chunk_in, torch.exp(cum[:, chunk - 1::chunk]), h0)
+    before = dict(LAUNCHES)
+    dS = ssd_bwd_dstate(dy, cum, C, chunk=chunk)
+    dchunk_in, dh0, end = ssd_bwd_state_pass(dS, cum, h_ins, dhf, chunk=chunk)
+    got = ssd_bwd_chunk(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in, end,
+                        chunk=chunk)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - before.get(k, 0) for k in ssd_kernel.BWD_KERNELS} \
+        == dict.fromkeys(ssd_kernel.BWD_KERNELS, 1)
+    assert got[0].dtype == dtype
+    _ssd_bwd_close("dS", dS, chunk_dstate_ref(dy, cum, C, chunk=chunk), dtype)
+    for what, g, r in zip(("dchunk_in", "dh0", "end"), (dchunk_in, dh0, end),
+                          state_pass_bwd_ref(dS, cum, h_ins, dhf, chunk=chunk)):
+        _ssd_bwd_close(what, g, r, dtype)
+    *ref, dA_scale = chunk_bwd_ref(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in,
+                                   end, chunk=chunk, dA_scale=True)
+    for what, g, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, ref):
+        _ssd_bwd_close(what, g, r, dtype, dA_scale if what == "dA" else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk", [
+    (1, 80, 4, 16, 2, 16, 32),    # padded to 96 inside ops.ssd
+    (2, 48, 8, 16, 1, 16, 8),     # the reduced config's (P, N, chunk)
+    (1, 96, 6, 32, 3, 16, 24)])
+def test_ssd_function_vs_autograd_on_card(cuda_device, Bt, S, H, P, G, N, chunk,
+                                          dtype):
+    """``ops.ssd`` with grad on goes through ``SSDScan`` (the forward path of
+    the input type, then the three backward kernels, one launch each); every
+    input's gradient, h0's included, against autograd through
+    ``ssd_chunked_ref``."""
+    x, dt, A, B, C, D = _ssd_inputs(cuda_device, dtype, Bt, S, H, P, G, N, True,
+                                    seed=S + 5)
+    rng = np.random.default_rng(S)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda_device)
+    h0, dhf, dy = f(Bt, H, P, N), f(Bt, H, P, N), f(Bt, S, H, P).to(dtype)
+    grads = {}
+    for impl in ("auto", "reference"):
+        leaves = [t.clone().requires_grad_() for t in (x, dt, A, B, C, D, h0)]
+        LAUNCHES.clear()
+        y, h = ssd(*leaves[:6], chunk=chunk, h0=leaves[6], impl=impl)
+        grads[impl] = torch.autograd.grad([y, h], leaves, [dy, dhf])
+        torch.cuda.synchronize()
+        if impl == "auto":
+            fwd = BF16_KERNELS if dtype == torch.bfloat16 else ("ssd_chunk",)
+            assert dict(LAUNCHES) == dict.fromkeys(fwd + ssd_kernel.BWD_KERNELS, 1)
+    for what, g, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD", "dh0"),
+                          *grads.values()):
+        assert g.dtype == r.dtype, what
+        _ssd_bwd_close(what, g, r, dtype)
+
+
+def test_rglru_function_vs_autograd_on_card(cuda_device):
+    """``ops.rglru_scan`` with grad on goes through ``RGLRUScan`` (one launch
+    of each kernel); the gradients of a, u and h0 against autograd through
+    ``rglru_scan_ref``."""
+    a, u, h0 = _rglru_inputs(cuda_device, torch.float32, 2, 300, 100, True,
+                             True, seed=3)
+    dh = torch.randn(a.shape, device=cuda_device)
+    grads = {}
+    for impl in ("auto", "sequential"):
+        leaves = [t.clone().requires_grad_() for t in (a, u, h0)]
+        LAUNCHES.clear()
+        hs, _ = rglru_scan(*leaves, impl=impl)
+        grads[impl] = torch.autograd.grad(hs, leaves, dh)
+        if impl == "auto":
+            assert dict(LAUNCHES) == {"rglru_scan": 1, "rglru_scan_bwd": 1}
+    for g, r in zip(*grads.values()):
+        np.testing.assert_allclose(_np(g), _np(r), **RGLRU_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,N", ssd_kernel.PN_PAIRS)
+@pytest.mark.parametrize("name", ssd_kernel.BWD_KERNELS)
+def test_ssd_bwd_kernels_use_no_local_memory(cuda_device, name, P, N, dtype):
+    attrs = ssd_kernel.bwd_attributes(name, P, N, dtype)
+    assert attrs["local_bytes"] == 0, attrs
+
+
+# Launches per training step of the reduced recurrent configs (f32 compute):
+# each superblock's forward twice (the step's and the rematerialised
+# recompute), each backward kernel once a layer.  mamba2-780m: 2 SSM layers
+# (the f32 path: ssd_chunk); recurrentgemma-2b: one superblock (RG-LRU,
+# RG-LRU, attention) and 2 RG-LRU tail layers.
+REDUCED_TRAIN_LAUNCHES = {
+    "mamba2-780m": {"ssd_chunk": 4, **dict.fromkeys(ssd_kernel.BWD_KERNELS, 2)},
+    "recurrentgemma-2b": {"rglru_scan": 6, "rglru_scan_bwd": 4,
+                          "flash_attn_fwd": 2, **dict.fromkeys(BWD_KERNELS, 1)},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(REDUCED_TRAIN_LAUNCHES))
+def test_reduced_recurrent_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One train step of a reduced recurrent config on the card, through the
+    kernels of its blocks and their backward kernels: loss, grad_norm and the
+    updated parameters as on the CPU from the same weights and batch."""
+    cfg = ARCHS[arch].reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0)).tree()
+    gpu = unflatten({k: t.to(cuda_device) for k, t in flatten(cpu).items()})
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, size=(2, 33)).astype(
+        np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    step = make_train_step(cfg)
+    LAUNCHES.clear()
+    gstate, gm = step({"params": gpu, "opt": init_opt_state(gpu)},
+                      {k: t.to(cuda_device) for k, t in batch.items()})
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == REDUCED_TRAIN_LAUNCHES[arch]
+    cstate, cm = step({"params": cpu, "opt": init_opt_state(cpu)}, batch)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(_np(gm[key]), _np(cm[key]), rtol=1e-5, atol=1e-5)
+    g, c = flatten(gstate["params"]), flatten(cstate["params"])
+    for key in c:
+        np.testing.assert_allclose(_np(g[key]), _np(c[key]), rtol=0, atol=1.2e-5,
+                                   err_msg=key)
+
+
+# Full-width training steps (chip_smoke.py's cells): launches per step, each
+# superblock's forward twice and each backward kernel once a layer.
+FULL_TRAIN = {
+    "mamba2-780m": (4, {"ssd_chunk_state": 96, "ssd_state_pass": 96,
+                        "ssd_chunk_scan": 96,
+                        **dict.fromkeys(ssd_kernel.BWD_KERNELS, 48)}),
+    "recurrentgemma-2b": (1, {"rglru_scan": 34, "rglru_scan_bwd": 18,
+                              "flash_attn_fwd": 16,
+                              **dict.fromkeys(BWD_KERNELS, 8)}),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(FULL_TRAIN))
+def test_full_width_train_step_on_card(cuda_device, arch):
+    """One full-width training step (random weights, batch x 2048): a finite
+    loss and gradient norm, and exactly its kernels' launches."""
+    batch_size, want = FULL_TRAIN[arch]
+    cfg = ARCHS[arch]
+    params = init_params(cfg, torch.Generator(cuda_device).manual_seed(0),
+                         trainable=True).tree()
+    toks = np.random.default_rng(5).integers(0, cfg.vocab,
+                                             size=(batch_size, 2049)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(cuda_device),
+             "labels": torch.from_numpy(toks[:, 1:]).to(cuda_device)}
+    LAUNCHES.clear()
+    _, metrics = make_train_step(cfg)({"params": params,
+                                       "opt": init_opt_state(params)}, batch)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == want
+    assert np.isfinite(float(metrics["loss"])) and np.isfinite(
+        float(metrics["grad_norm"]))
+    del params
+    torch.cuda.empty_cache()

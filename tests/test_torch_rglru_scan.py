@@ -9,9 +9,14 @@ packages.  Tolerances, abs + rel:
 - h_seq from bf16 inputs 8e-3: both sides compute in f32 from the same bf16
   inputs and round the output to bf16 once, so they differ by at most one
   bf16 step, 2**-7 |h| < 8e-3 |h|;
-- h_final is f32 on both sides whatever the input type: 1e-4.
-The CUDA kernel itself is held against ``rglru_scan_ref`` on the card in
-``tests/test_torch_cuda.py``.
+- h_final is f32 on both sides whatever the input type: 1e-4;
+- the gradient (``rglru_scan_bwd_ref``, the wrappers' plain version, and
+  ``RGLRUScan`` on CPU tensors) against autograd through ``rglru_scan_ref``
+  and against ``jax.vjp`` of the JAX package's ``rglru_scan_assoc``, f32:
+  1e-5 abs + rel, the f32 bound of the recurrence's sums taken in another
+  order.
+The CUDA kernels themselves are held against their plain versions on the
+card in ``tests/test_torch_cuda.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -23,9 +28,11 @@ from repro.kernels.rglru_scan.kernel import rglru_scan_pallas
 from repro.kernels.rglru_scan.ref import rglru_scan_assoc as jax_assoc
 from repro.kernels.rglru_scan.ref import rglru_scan_ref as jax_ref
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
-from repro_torch.kernels.rglru_scan.ops import rglru_scan
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_assoc, rglru_scan_ref
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd, rglru_scan_fwd
+from repro_torch.kernels.rglru_scan.ops import RGLRUScan, rglru_scan
+from repro_torch.kernels.rglru_scan.ref import (rglru_scan_assoc,
+                                                rglru_scan_bwd_ref,
+                                                rglru_scan_ref)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -154,3 +161,142 @@ def test_mixed_input_types_and_unknown_impl_raise():
         rglru_scan_fwd(a, a.to(torch.bfloat16))
     with pytest.raises(ValueError, match="unknown impl"):
         rglru_scan(torch.zeros(1, 2, 3), torch.zeros(1, 2, 3), impl="pallas")
+
+
+BWD_TOL = dict(rtol=1e-5, atol=1e-5)
+BWD_CASES = [  # (B, S, R, h0, dh_final)
+    (1, 64, 64, True, True),
+    (2, 96, 48, False, True),
+    (2, 37, 5, True, False),
+    (1, 1, 8, False, False),
+]
+
+
+def _bwd_inputs(seed, B, S, R, h0, dh_final):
+    """numpy a, u, h0, dh_seq, dh_final (a in [0.5, 0.999) as the forward
+    tests draw it), f32."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    return (rng.uniform(0.5, 0.999, size=(B, S, R)).astype(np.float32),
+            f(B, S, R), f(B, R) if h0 else None, f(B, S, R),
+            f(B, R) if dh_final else None)
+
+
+@jax.jit
+def _jax_grads(a, u, h0, dh, dhf):
+    """jax.vjp of the JAX package's log-depth scan: (da, du, dh0)."""
+    return jax.vjp(jax_assoc, a, u, h0)[1]((dh, dhf))
+
+
+def _autograd(a, u, h0, dh, dhf, fn=rglru_scan_ref):
+    """Gradients of <h_seq, dh> + <h_final, dh_final> by autograd through
+    ``fn``: (da, du, dh0 or None)."""
+    leaves = [torch.from_numpy(v).requires_grad_() if v is not None else None
+              for v in (a, u, h0)]
+    hs, hf = fn(*leaves)
+    outs, grads = [hs], [torch.from_numpy(dh)]
+    if dhf is not None:
+        outs.append(hf)
+        grads.append(torch.from_numpy(dhf))
+    want = [t for t in leaves if t is not None]
+    got = torch.autograd.grad(outs, want, grads)
+    return got if h0 is not None else (*got, None)
+
+
+@pytest.mark.parametrize("B,S,R,h0,dhf", BWD_CASES)
+def test_bwd_ref_vs_autograd_and_jax_grad(B, S, R, h0, dhf):
+    """``rglru_scan_bwd_ref`` (and the wrapper on CPU tensors) against
+    autograd through ``rglru_scan_ref`` and against ``jax.vjp`` of the JAX
+    package's ``rglru_scan_assoc``: the gradients of a, u and h0."""
+    a, u, h, dh, dhfin = _bwd_inputs(S * R + B, B, S, R, h0, dhf)
+    th = None if h is None else torch.from_numpy(h)
+    hs, _ = rglru_scan_ref(torch.from_numpy(a), torch.from_numpy(u), th)
+    h_prev = torch.cat([torch.zeros(B, 1, R) if th is None else th[:, None],
+                        hs[:, :-1]], dim=1)
+    tdhf = None if dhfin is None else torch.from_numpy(dhfin)
+    got = rglru_scan_bwd_ref(torch.from_numpy(a), h_prev, torch.from_numpy(dh),
+                             tdhf)
+    wrapped = rglru_scan_bwd(torch.from_numpy(a), hs, th, torch.from_numpy(dh),
+                             tdhf)
+    ref = _autograd(a, u, h, dh, dhfin)
+    jh = jnp.zeros((B, R), jnp.float32) if h is None else jnp.asarray(h)
+    jdhf = jnp.zeros((B, R), jnp.float32) if dhfin is None else jnp.asarray(dhfin)
+    jgrads = _jax_grads(jnp.asarray(a), jnp.asarray(u), jh, jnp.asarray(dh), jdhf)
+    for i, what in enumerate(("da", "du", "dh0")):
+        if what == "dh0" and h is None:
+            continue
+        for g in (got[i], wrapped[i]):
+            assert g.dtype == torch.float32
+            np.testing.assert_allclose(_np(g), _np(ref[i]), err_msg=what, **BWD_TOL)
+            np.testing.assert_allclose(_np(g), _np(jgrads[i]), err_msg=what,
+                                       **BWD_TOL)
+
+
+@pytest.mark.parametrize("h0", [True, False])
+def test_scan_function_on_cpu_matches_autograd_of_the_plain_path(h0):
+    """``RGLRUScan`` on CPU tensors (its forward and backward through the
+    wrappers' plain versions) against autograd through the model's plain
+    path, ``rglru_scan_assoc``; the long sequence with the model's decay."""
+    B, S, R = 2, 2048, 8
+    rng = np.random.default_rng(21)
+    a = np.exp(-8 * np.log1p(np.e) / (1 + np.exp(-rng.normal(size=(B, S, R)))))
+    u = np.sqrt(1 - a * a) * rng.normal(size=(B, S, R))
+    a, u = a.astype(np.float32), u.astype(np.float32)
+    h = rng.normal(size=(B, R)).astype(np.float32) if h0 else None
+    dh, dhf = (rng.normal(size=s).astype(np.float32) for s in ((B, S, R), (B, R)))
+    leaves = [torch.from_numpy(v).requires_grad_() if v is not None else None
+              for v in (a, u, h)]
+    hs, hf = RGLRUScan.apply(*leaves)
+    got = torch.autograd.grad([hs, hf], [t for t in leaves if t is not None],
+                              [torch.from_numpy(dh), torch.from_numpy(dhf)])
+    ref = _autograd(a, u, h, dh, dhf, rglru_scan_assoc)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(_np(g), _np(r), **BWD_TOL)
+
+
+def test_scan_function_saves_f32_states_for_bf16_inputs():
+    """bf16 a and u: the backward reads the f32 states, not the bf16 h_seq,
+    so its gradients are autograd's through the f32 loop on the same
+    values, rounded once to bf16."""
+    (_, _, _), (a, u, h0) = _inputs(5, 2, 64, 16, "bfloat16")
+    leaves = [t.clone().requires_grad_() for t in (a, u, h0)]
+    hs, _ = RGLRUScan.apply(*leaves)
+    dh = torch.from_numpy(np.random.default_rng(6).normal(
+        size=hs.shape).astype(np.float32)).to(torch.bfloat16)
+    got = torch.autograd.grad(hs, leaves, dh)
+    ref = _autograd(a.float().numpy(), u.float().numpy(), h0.numpy(),
+                    dh.float().numpy(), None)
+    assert got[0].dtype == got[1].dtype == torch.bfloat16
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r.to(g.dtype))
+
+
+@pytest.mark.parametrize("what,error", [
+    ("dh_seq", "dh_seq .* must be"),
+    ("dtype", "the same for a and dh_seq"),
+    ("h_state", "h_state"),
+    ("dh_final", "dh_final"),
+    ("h0", r"h0 \(1, 5\)"),
+    ("device", "CUDA device"),
+])
+def test_backward_wrapper_checks_before_launching(what, error):
+    """The backward's wrapper checks shapes and types off the CPU before it
+    touches the kernel; meta tensors reach those checks with no card."""
+    B, S, R = 1, 8, 4
+    m = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device="meta")
+    args = {"a": m(B, S, R), "h_state": m(B, S, R), "h0": m(B, R),
+            "dh_seq": m(B, S, R), "dh_final": m(B, R)}
+    if what == "dh_seq":
+        args["dh_seq"] = m(B, S, R + 1)
+    elif what == "dtype":
+        args["dh_seq"] = m(B, S, R, dtype=torch.bfloat16)
+    elif what == "h_state":
+        args["h_state"] = m(B, S, R, dtype=torch.bfloat16)
+    elif what == "dh_final":
+        args["dh_final"] = m(B, R + 1)
+    elif what == "h0":
+        args["h0"] = m(B, R + 1)
+    before = LAUNCHES["rglru_scan_bwd"]
+    with pytest.raises((ValueError, TypeError), match=error):
+        rglru_scan_bwd(**args)
+    assert LAUNCHES["rglru_scan_bwd"] == before

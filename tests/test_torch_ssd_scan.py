@@ -12,10 +12,17 @@ draws them, and handed to both packages.  Tolerances:
 - the bf16 tensor-core path's rounding, emulated here (``_emulate``), against
   the plain path and the JAX package: y one bf16 step (8e-3 abs + rel, both
   round y to bf16 once), h_final 2e-4 abs + rel, as ``chip_smoke.py`` holds
-  the kernels on the card.
+  the kernels on the card;
+- the gradient (``ssd_bwd_ref``, the backward wrappers' plain versions, and
+  ``SSDScan`` on CPU tensors) against autograd through ``ssd_chunked_ref``
+  and ``jax.vjp`` of the JAX package's ``ssd_chunked_ref``, f32: 1e-4 of
+  each gradient's largest magnitude (``_close_scaled``), since dA, dD, dB
+  and dC sum over a chunk's rows or the whole sequence, and a sum of mixed
+  signs has elements far below its terms.
 The CUDA kernels themselves are held against their plain versions on the
 card in ``tests/test_torch_cuda.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,13 +34,16 @@ from repro.kernels.ssd_scan.ref import ssd_chunked_ref as jax_chunked
 from repro.kernels.ssd_scan.ref import ssd_decode_step as jax_decode
 from repro.kernels.ssd_scan.ref import ssd_ref as jax_sequential
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.ssd_scan.kernel import (ssd_chunk, ssd_chunk_scan,
-                                                 ssd_chunk_state, ssd_state_pass)
-from repro_torch.kernels.ssd_scan.ops import ssd
+from repro_torch.kernels.ssd_scan.kernel import (ssd_bwd_chunk, ssd_bwd_dstate,
+                                                 ssd_bwd_state_pass, ssd_chunk,
+                                                 ssd_chunk_scan, ssd_chunk_state,
+                                                 ssd_state_pass)
+from repro_torch.kernels.ssd_scan.ops import SSDScan, ssd
 from repro_torch.kernels.ssd_scan.ref import (chunk_cumsum, chunk_scan_ref,
                                               chunk_state_ref, pass_states,
-                                              ssd_chunk_ref, ssd_chunked_ref,
-                                              ssd_decode_step, ssd_ref)
+                                              ssd_bwd_ref, ssd_chunk_ref,
+                                              ssd_chunked_ref, ssd_decode_step,
+                                              ssd_ref)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -414,3 +424,155 @@ def test_the_split_is_needed_at_the_serving_widths():
     assert _excess(y, y_ref, 8e-3) <= 0 and _excess(h, h_ref, 2e-4) <= 0
     y1, h1 = _emulate(*_args(t), chunk, split=False)
     assert _excess(y1, y_ref, 8e-3) > 0 and _excess(h1, h_ref, 2e-4) > 0
+
+
+BWD_RTOL = 1e-4
+GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+BWD_CASES = [  # (Bt, S, H, P, G, N, chunk, model A)
+    (1, 64, 2, 16, 1, 32, 16, False),
+    (2, 32, 4, 16, 2, 16, 8, False),     # the reduced configs' (P, N, chunk)
+    (1, 48, 6, 16, 3, 16, 24, False),
+    (1, 256, 2, 16, 1, 16, 128, True),   # cum below -1,000 within a chunk
+]
+
+
+def _close_scaled(got, ref, what):
+    """max |got - ref| <= BWD_RTOL max |ref|."""
+    got, ref = _np(got), _np(ref)
+    err, scale = np.abs(got - ref).max(), np.abs(ref).max()
+    assert got.shape == ref.shape and err <= BWD_RTOL * scale, \
+        f"{what}: max|err| {err:.3e}, max|ref| {scale:.3e}"
+
+
+def _bwd_case(seed, Bt, S, H, P, G, N, model_a):
+    """f32 inputs (dt in [0.6, 0.9] with the model's A, so that cum falls
+    below -1,000 in a 128-row chunk), h0, dy and dh_final, as (jax, torch)."""
+    A = -np.linspace(1.0, 16.0, H) if model_a else None
+    j, t = _inputs(seed, Bt, S, H, P, G, N, "float32", A=A)
+    rng = np.random.default_rng(seed + 1)
+    if model_a:
+        dt = rng.uniform(0.6, 0.9, size=(Bt, S, H)).astype(np.float32)
+        j["dt"], t["dt"] = jnp.asarray(dt), torch.from_numpy(dt)
+    for k, shape in (("h0", (Bt, H, P, N)), ("dy", (Bt, S, H, P)),
+                     ("dhf", (Bt, H, P, N))):
+        v = rng.normal(size=shape).astype(np.float32)
+        j[k], t[k] = jnp.asarray(v), torch.from_numpy(v)
+    return j, t
+
+
+def _jax_grads(j, chunk):
+    fn = jax.jit(lambda x, dt, A, B, C, D, h0, dy, dhf: jax.vjp(
+        lambda *a: jax_chunked(*a[:6], chunk=chunk, h0=a[6]),
+        x, dt, A, B, C, D, h0)[1]((dy, dhf)))
+    return fn(*_args(j), j["h0"], j["dy"], j["dhf"])
+
+
+def _autograd_grads(t, chunk, fn=ssd_chunked_ref):
+    leaves = [v.clone().requires_grad_() for v in (*_args(t), t["h0"])]
+    y, h = fn(*leaves[:6], chunk=chunk, h0=leaves[6])
+    return torch.autograd.grad([y, h], leaves, [t["dy"], t["dhf"]])
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk,model_a", BWD_CASES)
+def test_bwd_ref_vs_autograd_and_jax_grad(Bt, S, H, P, G, N, chunk, model_a):
+    """``ssd_bwd_ref`` from the forward's saved cum and h_ins, and the three
+    backward wrappers on CPU tensors, against autograd through
+    ``ssd_chunked_ref`` and ``jax.vjp`` of the JAX package's
+    ``ssd_chunked_ref``: every input's gradient, h0's included."""
+    j, t = _bwd_case(S + H, Bt, S, H, P, G, N, model_a)
+    x, dt, A, B, C, D = _args(t)
+    cum = chunk_cumsum(dt, A, chunk)
+    if model_a:
+        assert cum.min().item() < -1000
+    _, chunk_in = ssd_chunk_ref(x, dt, cum, B, C, chunk=chunk)
+    h_ins, _ = pass_states(chunk_in, torch.exp(cum[:, chunk - 1::chunk]), t["h0"])
+    got = ssd_bwd_ref(x, dt, A, B, C, D, cum, h_ins, t["dy"], t["dhf"],
+                      chunk=chunk)
+    dS = ssd_bwd_dstate(t["dy"], cum, C, chunk=chunk)
+    dchunk_in, dh0, end = ssd_bwd_state_pass(dS, cum, h_ins, t["dhf"],
+                                             chunk=chunk)
+    wrapped = (*ssd_bwd_chunk(x, dt, A, cum, B, C, D, t["dy"], h_ins, dchunk_in,
+                              end, chunk=chunk), dh0)
+    ref = _autograd_grads(t, chunk)
+    jref = _jax_grads(j, chunk)
+    for what, g, w, r, jr in zip(GRAD_NAMES, got, wrapped, ref, jref):
+        assert bool(torch.isfinite(g).all()), what
+        assert torch.equal(g, w), what
+        _close_scaled(g, r, what)
+        _close_scaled(g, jr, what)
+
+
+@pytest.mark.parametrize("name", sorted(DTYPES))
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk,model_a", BWD_CASES[:2])
+def test_ssd_function_on_cpu_matches_autograd(Bt, S, H, P, G, N, chunk, model_a,
+                                              name):
+    """``SSDScan`` on CPU tensors (forward through the path of the input
+    type, backward through the wrappers' plain versions) against autograd
+    through ``ssd_chunked_ref`` from the same inputs: f32 within BWD_RTOL;
+    bf16 x, B, C (and their gradients, rounded once to bf16 on both sides)
+    within one bf16 step, 8e-3 of the largest magnitude."""
+    _, t = _bwd_case(S * G, Bt, S, H, P, G, N, model_a)
+    if name == "bfloat16":
+        for k in ("x", "B", "C", "dy"):
+            t[k] = t[k].to(torch.bfloat16)
+    got = _autograd_grads(t, chunk,
+                          lambda *a, chunk, h0: SSDScan.apply(*a, h0, chunk))
+    ref = _autograd_grads(t, chunk)
+    for what, g, r in zip(GRAD_NAMES, got, ref):
+        assert g.dtype == r.dtype, what
+        if name == "float32":
+            _close_scaled(g, r, what)
+        else:
+            err = np.abs(_np(g) - _np(r)).max()
+            assert err <= 8e-3 * np.abs(_np(r)).max(), what
+
+
+@pytest.mark.parametrize("kernel,what,error", [
+    ("ssd_bwd_dstate", "pn", r"\(P, N\) = \(48, 16\)"),
+    ("ssd_bwd_dstate", "dtype", "the same for all three"),
+    ("ssd_bwd_dstate", "device", "CUDA device"),
+    ("ssd_bwd_state_pass", "shape", "shapes do not match"),
+    ("ssd_bwd_state_pass", "dh_final", "dh_final must be"),
+    ("ssd_bwd_state_pass", "dtype", "float32"),
+    ("ssd_bwd_state_pass", "device", "CUDA device"),
+    ("ssd_bwd_chunk", "pn", r"\(P, N\) = \(48, 16\)"),
+    ("ssd_bwd_chunk", "dy", "dy .* must match x"),
+    ("ssd_bwd_chunk", "end_term", "end_term"),
+    ("ssd_bwd_chunk", "dtype", "must be float32"),
+    ("ssd_bwd_chunk", "device", "CUDA device"),
+])
+def test_bwd_wrappers_check_before_launching(kernel, what, error):
+    """The backward's wrappers check shapes, types and the device before
+    they touch a kernel; meta tensors reach those checks with no card."""
+    Bt, S, H, G, chunk = 1, 64, 2, 1, 16
+    P = 48 if what == "pn" else 16
+    N, nc = 16, S // chunk
+    m = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device="meta")
+    x, dy = m(Bt, S, H, P), m(Bt, S, H, P)
+    f32, BC = m(Bt, S, H), m(Bt, S, G, N)
+    states, hn = m(Bt, nc, H, P, N), m(H)
+    end = m(Bt, nc, H)
+    dhf = m(Bt, H, P, N)
+    if what == "dtype" and kernel == "ssd_bwd_dstate":
+        BC = m(Bt, S, G, N, dtype=torch.bfloat16)
+    if what == "dtype" and kernel != "ssd_bwd_dstate":
+        dhf = m(Bt, H, P, N, dtype=torch.bfloat16)
+        hn = m(H, dtype=torch.bfloat16)
+    if what == "shape":
+        states = m(Bt, nc, H, P, N + 4)
+    if what == "dh_final":
+        dhf = m(Bt, H, P + 1, N)
+    if what == "dy":
+        dy = m(Bt, S, H, P, dtype=torch.bfloat16)
+    if what == "end_term":
+        end = m(Bt, nc + 1, H)
+    before = dict(LAUNCHES)
+    with pytest.raises((ValueError, TypeError), match=error):
+        if kernel == "ssd_bwd_dstate":
+            ssd_bwd_dstate(dy, f32, BC, chunk=chunk)
+        elif kernel == "ssd_bwd_state_pass":
+            ssd_bwd_state_pass(states, f32, m(Bt, nc, H, P, N), dhf, chunk=chunk)
+        else:
+            ssd_bwd_chunk(x, f32, hn, f32, BC, BC, hn, dy, states, states, end,
+                          chunk=chunk)
+    assert dict(LAUNCHES) == before

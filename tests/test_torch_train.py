@@ -50,10 +50,12 @@ from repro_torch.train.optimizer import (OptConfig, adamw_update,
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
-CASES = {  # tests/test_torch_models.py's dense cases
+CASES = {  # tests/test_torch_models.py's dense cases and the recurrent ones
     "smollm-135m": {},
     "qwen3-0.6b": {},
     "qwen3-0.6b-local": {"attn_kind": "local", "local_window": 8},
+    "mamba2-780m": {},
+    "recurrentgemma-2b": {},
 }
 B, S = 2, 16
 
@@ -100,7 +102,7 @@ def _grads(jcfg, jstate, tcfg, tstate, batch):
         h, _ = jax_forward(p, jcfg, jnp.asarray(batch["tokens"]), mode="train")
         return jax_ce(p, h, jnp.asarray(batch["labels"]), jcfg)
 
-    jloss, jgrads = jax.value_and_grad(loss_fn)(jstate["params"])
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(jstate["params"])
     tb = shard_batch(batch, "cpu")
     flat = flatten(tstate["params"])
     for p in flat.values():
@@ -310,9 +312,11 @@ SMALL = ["--reduced", "--device", "cpu", "--batch", "2", "--seq", "16",
          "--log-every", "1"]
 
 
-def test_train_launcher_reduced_on_cpu():
-    out = train.main(SMALL + ["--arch", "qwen3-0.6b", "--steps", "3"])
-    assert out["arch"] == "qwen3-0.6b-reduced" and out["device"] == "cpu"
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m",
+                                  "recurrentgemma-2b"])
+def test_train_launcher_reduced_on_cpu(arch):
+    out = train.main(SMALL + ["--arch", arch, "--steps", "3"])
+    assert out["arch"] == f"{arch}-reduced" and out["device"] == "cpu"
     assert len(out["losses"]) == len(out["step_ms"]) == 3
     assert all(np.isfinite(out["losses"]))
     assert out["launches"] == [{}, {}, {}]  # the CPU launches no kernel
@@ -341,9 +345,9 @@ def test_train_default_device_without_a_card_raises(monkeypatch):
         train.main(["--reduced", "--steps", "1"])
 
 
-def test_recurrent_blocks_do_not_train_yet():
-    """Their kernels have no backward yet: train mode raises rather than
-    return a gradient that stops at the kernel."""
-    cfg = ARCHS["mamba2-780m"].reduced()
-    with pytest.raises(NotImplementedError, match="do not train yet"):
+def test_moe_blocks_do_not_train_yet():
+    """Mixture-of-experts blocks are not ported: train mode raises, as
+    prefill does."""
+    cfg = ARCHS["granite-moe-3b-a800m"].reduced()
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         forward({}, cfg, torch.zeros(1, 4, dtype=torch.int32), mode="train")

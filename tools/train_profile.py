@@ -3,15 +3,19 @@
 
     python3 tools/train_profile.py                       # 2 steps, then 2 profiled
     python3 tools/train_profile.py --warmup 4 --steps 1
+    python3 tools/train_profile.py --arch mamba2-780m
+    python3 tools/train_profile.py --arch recurrentgemma-2b --batch 2
 
-Builds the port's kernels, trains full-width qwen3-0.6b at batch 4 x 2048
-(``chip_smoke.py``'s training cell, random weights, synthetic tokens):
+Builds the port's kernels, trains a full-width model (qwen3-0.6b by
+default; mamba2-780m or recurrentgemma-2b) at batch 4 x 2048 unless
+``--batch`` says otherwise (``chip_smoke.py``'s training cells, random
+weights, synthetic tokens):
 ``--warmup`` steps of ``repro_torch.launch.train``'s step function
 unprofiled, then ``--steps`` more under ``torch.profiler`` (CPU and CUDA
 activities), each ending in a ``torch.cuda.synchronize()``.  Prints the
 host-clock step times, the device time of every kernel summed by name (the
-top rows), the same time grouped into the port's flash kernels, bf16 and f32
-matrix products (cuBLAS and CUTLASS kernels, by the types in their names)
+top rows), the same time grouped into the port's kernels (flash, SSD and
+RG-LRU, forward and backward), bf16 and f32 matrix products (cuBLAS and CUTLASS kernels, by the types in their names)
 and everything else, and the device's busy share of the profiled wall time
 (the kernels of one stream do not overlap, so their sum is the busy time).
 Exits non-zero without a CUDA device.
@@ -25,7 +29,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCH, BATCH, SEQ = "qwen3-0.6b", 4, 2048
+SEQ = 2048
 
 
 def category(name: str) -> str:
@@ -35,8 +39,19 @@ def category(name: str) -> str:
         return "flash backward kernels"
     if "flash_attn_fwd" in low:
         return "flash forward kernel"
-    if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas")):
-        return "matrix products, bf16" if "bf16" in low else "matrix products, f32"
+    if "ssd_bwd" in low:
+        return "SSD backward kernels"
+    if any(s in low for s in ("ssd_chunk", "ssd_state_pass")):
+        return "SSD forward kernels"
+    if "rglru_scan_bwd" in low:
+        return "RG-LRU backward kernel"
+    if "rglru_scan" in low:
+        return "RG-LRU scan kernel"
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
+        # cuBLAS's f32 kernels name their type (f32f32, sgemm); its bf16 ones
+        # may not (nvjet)
+        return "matrix products, f32" if any(s in low for s in ("f32f32", "sgemm")) \
+            else "matrix products, bf16"
     return "everything else (elementwise, reductions, copies, indexing)"
 
 
@@ -52,6 +67,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    choices=("qwen3-0.6b", "mamba2-780m", "recurrentgemma-2b"))
+    ap.add_argument("--batch", type=int, default=4)
     args = ap.parse_args(argv)
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -71,10 +89,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     build.build_all()
-    cfg = ARCHS[ARCH]
+    cfg = ARCHS[args.arch]
     state = init_train_state(cfg, torch.Generator(device).manual_seed(0))
     step_fn = make_train_step(cfg, OptConfig(total_steps=1000))
-    src = SyntheticTokens(cfg.vocab, BATCH, SEQ, seed=0)
+    src = SyntheticTokens(cfg.vocab, args.batch, SEQ, seed=0)
 
     def step():
         nonlocal state
@@ -90,7 +108,8 @@ def main(argv=None) -> int:
         timed = [step() for _ in range(args.steps)]
         wall_ms = 1e3 * (time.perf_counter() - t0)
     print(f"[profile] {torch.cuda.get_device_name(0)}; {cfg.name} batch "
-          f"{BATCH} x {SEQ}; step ms unprofiled {warm}, profiled {timed}")
+          f"{args.batch} x {SEQ}; step ms unprofiled {warm}, profiled {timed}; "
+          f"peak memory {torch.cuda.max_memory_allocated(device)} bytes")
 
     kernels = collections.Counter()
     for evt in prof.key_averages():
