@@ -36,8 +36,12 @@ Phases; any that fails ends the run with a non-zero exit:
        and u in f32 and in bf16, both outputs (f32 1e-5, bf16 h_seq 8e-3);
      - the flash backward's kernels (flash_attn_bwd_pre, _dkdv, _dq) against
        ``attention_bwd_ref`` over flash_attn_fwd's grid plus qwen3-0.6b's
-       training shape, f32 and bf16 (dq, dk, dv 1e-4 and 2e-2; D 1e-5), and
-       the forward's log-sum-exp against ``lse_ref`` (1e-5);
+       training shape and recurrentgemma-2b's at batch 1 and 4, f32 and bf16
+       (dq, dk, dv 1e-4 and 2e-2; D 1e-5), and the forward's log-sum-exp
+       against ``lse_ref`` (1e-5); then bf16 at head_dim 256 with the dK/dV
+       kernel's query walk cut into other numbers of parts than
+       ``bwd_splits`` picks (1, 3, more parts than query tiles) at a ragged
+       S, window 1, a window inside a tile, KH > 1 and the training shape;
      - rglru_scan_bwd against ``rglru_scan_bwd_ref`` over rglru_scan's grid
        and recurrentgemma-2b's training shape, with and without dh_final,
        f32 and bf16 (1e-5; bf16 da and du one bf16 step, 8e-3);
@@ -59,9 +63,12 @@ Phases; any that fails ends the run with a non-zero exit:
      backward each kernel, their sum, ``attention_bwd_ref`` and SDPA's
      backward (the yardstick) at the training shape, and the forward with
      and without its log-sum-exp, and the same at recurrentgemma-2b's
-     training shape (head_dim 256); rglru_scan_bwd and the SSD backward's
+     training shape (head_dim 256) at batch 4 and at the cell's batch 1,
+     with the dK/dV kernel's parts; rglru_scan_bwd and the SSD backward's
      kernels at their training shapes, each beside its plain version and its
-     bound, and the whole SSD backward;
+     bound (ssd_bwd_dstate also beside ``torch.einsum`` of the prescaled dy
+     and C, the one PyTorch call that computes its product), and the whole
+     SSD backward;
   4. the main paths, each with the launch counts set to 0 just before it and
      read just after: ``repro_torch.launch.serve`` serves 8 requests of
      full-width qwen3-0.6b, then of full-width mamba2-780m, then of
@@ -303,6 +310,22 @@ TRAIN_PATHS = {
 # at batch 4 holds (4, 8, 48, 256, 256) f32 score tensors a layer.
 GRAD_BATCH = {"qwen3-0.6b": BATCH, "mamba2-780m": 1, "recurrentgemma-2b": 1}
 RG_TRAIN_SHAPE = (4, 2048, 10, 1, 256, 2048, True)  # recurrentgemma-2b's attention
+RG_TRAIN_SHAPE_B1 = (1,) + RG_TRAIN_SHAPE[1:]  # ... at the training cell's batch
+# bf16 head_dim-256 cases with the dK/dV kernel's query walk cut into a
+# given number of parts, (shape, splits): a ragged S, window 1 and more
+# parts than query tiles, a window inside a tile with KH > 1, unsplit, a
+# non-causal ragged S, and the training shapes at other part counts than
+# bwd_splits picks (8 at batch 1, 2 at batch 4).
+SPLIT_GRID = [
+    ((1, 2049, 10, 1, 256, 2048, True), 3),
+    ((1, 65, 4, 1, 256, 1, True), 8),
+    ((1, 127, 4, 2, 256, 40, True), 3),
+    ((1, 300, 10, 1, 256, 128, True), 1),
+    ((2, 129, 2, 1, 256, None, False), 5),
+    (RG_TRAIN_SHAPE_B1, 1),
+    (RG_TRAIN_SHAPE_B1, 3),
+    (RG_TRAIN_SHAPE, 8),
+]
 # rglru_scan_bwd against rglru_scan_bwd_ref: the same rounded sum and product
 # in the same order, so f32 agrees exactly (1e-5 abs + rel, RGLRU_TOL); bf16
 # da and du are rounded to bf16 once on both sides, one step (8e-3); dh0 is
@@ -369,28 +392,31 @@ def ptxas_summary(log: str) -> list:
 def spill_gate(logs: dict) -> None:
     """Fails the run unless every bf16 (tensor-core) instantiation reports 0
     bytes of spill stores and loads in ptxas's report: the flash kernel's,
-    one per head_dim its wrapper takes, and the SSD path's, ssd_chunk_state
-    and ssd_chunk_scan at each (P, N) their wrappers take and
-    ssd_state_pass; and the same of the f32 flash kernel, of the flash
-    backward's three kernels, one per head_dim and type, of the SSD
-    backward's three, one per (P, N) and type, and of the RG-LRU backward,
-    one per type."""
+    one per head_dim its wrapper takes, and the SSD path's, ssd_chunk_state,
+    ssd_chunk_scan and the bf16 ssd_bwd_dstate at each (P, N) their wrappers
+    take and ssd_state_pass; and the same of the f32 flash kernel, of the
+    flash backward's three kernels, one per head_dim and type (bf16 at
+    head_dim 256: the eight-warp kernels), of the SSD backward's three, one
+    per (P, N) and type, and of the RG-LRU backward, one per type."""
     import re
-    from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
-                                                            TC_BWD_HEAD_DIMS)
+    from repro_torch.kernels.flash_attention.kernel import (
+        HEAD_DIMS, TC_BWD_HEAD_DIMS, WIDE_BWD_HEAD_DIMS)
     from repro_torch.kernels.ssd_scan.kernel import PN_PAIRS
-    n_tc = len(TC_BWD_HEAD_DIMS)
+    n_tc, n_wide = len(TC_BWD_HEAD_DIMS), len(WIDE_BWD_HEAD_DIMS)
     # the tensor-core forward once without L (served) and once with it
     wanted = (("flash_attn_fwd", "flash_attn_fwd_tc_kernel", 2 * len(HEAD_DIMS)),
               ("flash_attn_fwd", "flash_attn_fwd_simt_kernel", len(HEAD_DIMS)),
               ("flash_attn_bwd", "flash_attn_bwd_pre_kernel", 2 * len(HEAD_DIMS)),
               *(("flash_attn_bwd", f"flash_attn_bwd_{name}_kernel",
                  2 * len(HEAD_DIMS) - n_tc) for name in ("dkdv", "dq")),
-              *(("flash_attn_bwd", f"flash_attn_bwd_{name}_tc_kernel", n_tc)
+              *(("flash_attn_bwd", f"flash_attn_bwd_{name}_tc_kernel",
+                 n_tc - n_wide) for name in ("dkdv", "dq")),
+              *(("flash_attn_bwd", f"flash_attn_bwd_{name}_wide_kernel", n_wide)
                 for name in ("dkdv", "dq")),
               ("ssd_bf16", "ssd_chunk_state_kernel", len(PN_PAIRS)),
               ("ssd_bf16", "ssd_chunk_scan_kernel", len(PN_PAIRS)),
               ("ssd_bf16", "ssd_state_pass_kernel", 1),
+              ("ssd_bf16", "ssd_bwd_dstate_tc_kernel", len(PN_PAIRS)),
               # the backwards of the recurrent blocks, both input types each
               ("ssd_bwd", "ssd_bwd_dstate_kernel", 2 * len(PN_PAIRS)),
               ("ssd_bwd", "ssd_bwd_chunk_kernel", 2 * len(PN_PAIRS)),
@@ -862,8 +888,9 @@ def bwd_kernel_vs_plain(device) -> dict:
     ``lse_ref``, then each backward kernel against its plain version from
     the same q, k, v, o, L and dO (D against rowsum(dO o O), dq, dk and dv
     against ``attention_bwd_ref``), over flash_attn_fwd's grid and the
-    training shape, f32 and bf16.  Returns the max abs errors at the
-    training shape in bf16 (the main path's case)."""
+    training shapes, f32 and bf16, the dK/dV kernel split as ``bwd_splits``
+    picks; then bf16 over SPLIT_GRID with the parts given.  Returns, by
+    training shape, the max abs errors in bf16 (the main paths' cases)."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import (BWD_KERNELS,
                                                             bwd_buffers,
@@ -872,42 +899,53 @@ def bwd_kernel_vs_plain(device) -> dict:
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          lse_ref)
     check(BWD_KERNELS == BWD_KERNEL_NAMES, f"backward kernels {BWD_KERNELS}")
-    errs = {}
-    for i, shape in enumerate(GRID + GRID_HD256 + [TRAIN_SHAPE]):
-        for name in ("float32", "bfloat16"):
-            dtype = getattr(torch, name)
-            q, k, v = qkv(shape, dtype, device, seed=400 + i)
-            do = torch.randn(q.shape, generator=torch.Generator(device)
-                             .manual_seed(500 + i), device=device).to(dtype)
-            B, S, H, KH, hd, window, causal = shape
-            o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                         return_lse=True)
-            bufs = bwd_buffers(q, k, v, o, lse, do, window=window)
-            for kernel in BWD_KERNELS:
-                launch_bwd(kernel, bufs, causal=causal, window=window)
-            torch.cuda.synchronize(device)
-            ref = dict(zip(("dq", "dk", "dv"), attention_bwd_ref(
-                q, k, v, o, lse, do, causal=causal, window=window)))
-            ref["delta"] = (do.float() * o.float()).sum(-1).transpose(1, 2)
-            ref["lse"] = lse_ref(q, k, causal=causal, window=window)
-            line = []
-            for what in ("lse", "delta", "dq", "dk", "dv"):
-                tol = {"lse": LSE_TOL, "delta": D_TOL}.get(what, BWD_TOL[name])
-                got = bufs[what]
-                check(got.dtype == ref[what].dtype and got.shape == ref[what].shape
-                      and bool(torch.isfinite(got).all()), f"bad backward {what}")
-                e, excess = excess_error(got, ref[what], tol)
-                check(excess <= 0, f"flash backward {what} disagrees with plain "
-                      f"at {shape} {name}: max|err| {e:.3e} (tol {tol:g})")
-                errs[what] = e
-                line.append(f"{what} {e:.3e}")
-            print(f"[kernel] flash backward {name} B={B} S={S} H={H} KH={KH} "
-                  f"hd={hd} window={window} causal={causal}: max|err| "
-                  + ", ".join(line) + f" (tol L {LSE_TOL:g}, D {D_TOL:g}, "
-                  f"gradients {BWD_TOL[name]:g}, abs + rel)")
-    return {"lse": errs["lse"], "flash_attn_bwd_pre": errs["delta"],
-            "flash_attn_bwd_dkdv": max(errs["dk"], errs["dv"]),
-            "flash_attn_bwd_dq": errs["dq"]}
+    errs, by_shape = {}, {}
+    # (seed, shape, type, parts): a shape's seed is its place in the grid
+    cases = [(i, shape, name, None) for i, shape in enumerate(
+        GRID + GRID_HD256 + [TRAIN_SHAPE, RG_TRAIN_SHAPE, RG_TRAIN_SHAPE_B1])
+        for name in ("float32", "bfloat16")]
+    cases += [(200 + j, shape, "bfloat16", splits)
+              for j, (shape, splits) in enumerate(SPLIT_GRID)]
+    for i, shape, name, splits in cases:
+        dtype = getattr(torch, name)
+        q, k, v = qkv(shape, dtype, device, seed=400 + i)
+        do = torch.randn(q.shape, generator=torch.Generator(device)
+                         .manual_seed(500 + i), device=device).to(dtype)
+        B, S, H, KH, hd, window, causal = shape
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+        bufs = bwd_buffers(q, k, v, o, lse, do, window=window,
+                           splits=splits)
+        for kernel in BWD_KERNELS:
+            launch_bwd(kernel, bufs, causal=causal, window=window)
+        torch.cuda.synchronize(device)
+        ref = dict(zip(("dq", "dk", "dv"), attention_bwd_ref(
+            q, k, v, o, lse, do, causal=causal, window=window)))
+        ref["delta"] = (do.float() * o.float()).sum(-1).transpose(1, 2)
+        ref["lse"] = lse_ref(q, k, causal=causal, window=window)
+        line = []
+        for what in ("lse", "delta", "dq", "dk", "dv"):
+            tol = {"lse": LSE_TOL, "delta": D_TOL}.get(what, BWD_TOL[name])
+            got = bufs[what]
+            check(got.dtype == ref[what].dtype and got.shape == ref[what].shape
+                  and bool(torch.isfinite(got).all()), f"bad backward {what}")
+            e, excess = excess_error(got, ref[what], tol)
+            check(excess <= 0, f"flash backward {what} disagrees with plain "
+                  f"at {shape} {name}: max|err| {e:.3e} (tol {tol:g})")
+            errs[what] = e
+            line.append(f"{what} {e:.3e}")
+        print(f"[kernel] flash backward {name} B={B} S={S} H={H} KH={KH} "
+              f"hd={hd} window={window} causal={causal} dK/dV parts "
+              f"{bufs['splits']}{'' if splits else ' (bwd_splits)'}: max|err| "
+              + ", ".join(line) + f" (tol L {LSE_TOL:g}, D {D_TOL:g}, "
+              f"gradients {BWD_TOL[name]:g}, abs + rel)")
+        if splits is None and name == "bfloat16" and shape in (
+                TRAIN_SHAPE, RG_TRAIN_SHAPE, RG_TRAIN_SHAPE_B1):
+            by_shape[shape] = {
+                "lse": errs["lse"], "flash_attn_bwd_pre": errs["delta"],
+                "flash_attn_bwd_dkdv": max(errs["dk"], errs["dv"]),
+                "flash_attn_bwd_dq": errs["dq"]}
+    return by_shape
 
 
 def rglru_bwd_vs_plain(device) -> float:
@@ -1155,10 +1193,11 @@ def bwd_timing(device, shape=TRAIN_SHAPE) -> dict:
     """Phase 3 for the flash backward at a training shape (bf16, causal; a
     window that does not bite at S, so SDPA's causal mask computes the same
     function):
-    each kernel with its bound, registers and shared memory; plain_ms of
-    flash_attn_bwd_pre is rowsum(dO o O) in PyTorch, of the other two
-    ``attention_bwd_ref``, which computes dq, dk and dv together; no single
-    PyTorch call computes one kernel's part (library_ms null).  Then the
+    each kernel with its bound, registers and shared memory (dK/dV with the
+    parts ``bwd_splits`` picks, its time including the sum of the parts);
+    plain_ms of flash_attn_bwd_pre is rowsum(dO o O) in PyTorch, of the
+    other two ``attention_bwd_ref``, which computes dq, dk and dv together;
+    no single PyTorch call computes one kernel's part (library_ms null).  Then the
     whole backward (``flash_attention_bwd``) beside the sum of its kernels,
     ``attention_bwd_ref`` and SDPA's backward alone (its forward run once,
     K/V by ``enable_gqa``), the yardstick the port never calls; and the
@@ -1190,6 +1229,8 @@ def bwd_timing(device, shape=TRAIN_SHAPE) -> dict:
             "library_ms": None}
         out[name]["bound_ms"], out[name]["bound_by"] = bounds[name]
         out[name].update(bwd_attributes(name, hd, torch.bfloat16))
+        if name == "flash_attn_bwd_dkdv":
+            out[name]["splits"] = bufs["splits"]
         print(f"[timing] {name} at B={B} S={S} H={H} KH={KH} hd={hd} bf16 "
               "causal: " + ", ".join(f"{k} {v}" for k, v in out[name].items()))
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -1293,8 +1334,9 @@ def ssd_bwd_timing(device) -> dict:
     B, C, dy; the model's A): each kernel beside its plain version and its
     bound, with its registers and shared bytes, then the whole backward
     (the three wrappers, with the partial sums in PyTorch) beside autograd
-    through ``ssd_chunked_ref`` from the same inputs.  No single PyTorch
-    call computes any of them: library_ms null."""
+    through ``ssd_chunked_ref`` from the same inputs.  One PyTorch call,
+    ``torch.einsum``, computes ssd_bwd_dstate's product from dy exp(cum);
+    none computes the other two: library_ms null."""
     import torch
     from repro_torch.kernels.ssd_scan.kernel import (bwd_attributes,
                                                      ssd_bwd_chunk,
@@ -1321,16 +1363,29 @@ def ssd_bwd_timing(device) -> dict:
             lambda: chunk_bwd_ref(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in,
                                   end, chunk=chunk)),
     }
+    # dS's product alone, in one PyTorch call: torch.einsum of dy exp(cum)
+    # (prescaled here, outside the timing) and C, as chunk_dstate_ref forms it
+    Bt, S, H, P, G, N, _ = SSD_SERVE
+    nc = S // chunk
+    dyw = (dy.float() * torch.exp(cum)[..., None]).reshape(Bt, nc, chunk, G,
+                                                           H // G, P)
+    cf = C.float().reshape(Bt, nc, chunk, G, N)
+    library = {"ssd_bwd_dstate": lambda: torch.einsum("bcqgrp,bcqgn->bcgrpn",
+                                                      dyw, cf)}
     bounds = ssd_bwd_bounds(SSD_SERVE)
     out = {}
     for name, (fast, plain) in runs.items():
         out[name] = {"ms": time_ms(fast, 10), "plain_ms": time_ms(plain, 2, warmup=1),
-                     "library_ms": None}
+                     "library_ms": time_ms(library[name], 10)
+                     if name in library else None}
         out[name]["bound_ms"], out[name]["bound_by"] = bounds[name]
         out[name].update(bwd_attributes(name, *SSD_SERVE[3:6:2], torch.bfloat16))
         print(f"[timing] {name} at Bt=4 S=2048 H=48 P=64 G=1 N=128 chunk=256 "
-              "bf16 (no single PyTorch call computes it: library_ms null): "
+              "bf16 (library_ms: ssd_bwd_dstate's product by torch.einsum on "
+              "the prescaled f32 dy exp(cum) and C; no single PyTorch call "
+              "computes the other two, null): "
               + ", ".join(f"{k} {v}" for k, v in out[name].items()))
+    del dyw, cf
 
     def kernels():
         s = ssd_bwd_dstate(dy, cum, C, chunk=chunk)
@@ -1896,6 +1951,7 @@ def main() -> int:
     functions_vs_autograd(device)
     bwd_time = bwd_timing(device)
     rg_bwd_time = bwd_timing(device, RG_TRAIN_SHAPE)
+    rg1_bwd_time = bwd_timing(device, RG_TRAIN_SHAPE_B1)
     rglru_bwd_time = rglru_bwd_timing(device)
     ssd_bwd_time = ssd_bwd_timing(device)
     launches = {arch: serve_and_check(device, arch) for arch in PATHS}
@@ -1916,12 +1972,16 @@ def main() -> int:
         "launches": launches["qwen3-0.6b training"]["flash_attn_fwd"],
         "ms_with_lse": bwd_time["flash_attn_bwd_dq"]["whole_backward"][
             "fwd_with_lse_ms"]})
-    flash_shapes.append({
-        "shape": list(RG_TRAIN_SHAPE), "path": "recurrentgemma-2b training",
-        "launches": launches["recurrentgemma-2b training"]["flash_attn_fwd"],
-        "ms": rg_bwd_time["flash_attn_bwd_dq"]["whole_backward"]["fwd_ms"],
-        "ms_with_lse": rg_bwd_time["flash_attn_bwd_dq"]["whole_backward"][
-            "fwd_with_lse_ms"]})
+    for shape, times, launched in (
+            (RG_TRAIN_SHAPE, rg_bwd_time, 0),  # timed at 4; the cell runs 1
+            (RG_TRAIN_SHAPE_B1, rg1_bwd_time,
+             launches["recurrentgemma-2b training"]["flash_attn_fwd"])):
+        flash_shapes.append({
+            "shape": list(shape), "path": "recurrentgemma-2b training",
+            "launches": launched,
+            "ms": times["flash_attn_bwd_dq"]["whole_backward"]["fwd_ms"],
+            "ms_with_lse": times["flash_attn_bwd_dq"]["whole_backward"][
+                "fwd_with_lse_ms"]})
     flash_bwd = [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attn_bwd.cu",
@@ -1936,30 +1996,44 @@ def main() -> int:
                                    "dK and dV written once; bf16 at hd 16 and "
                                    "64: tensor cores (mma.sync m16n8k16, "
                                    "ldmatrix, two cp.async stages, P and dS "
-                                   "in registers); f32: CUDA cores",
+                                   "in registers); bf16 at hd 256: eight "
+                                   "warps (a row group and a column half "
+                                   "each, P and dS through shared memory), "
+                                   "the walk cut into bwd_splits parts whose "
+                                   "f32 partials PyTorch sums; f32: CUDA "
+                                   "cores",
             "flash_attn_bwd_dq": "a block per (batch x head, 64 queries) walks "
                                  "the key tiles; bf16 at hd 16 and 64: tensor "
-                                 "cores as dkdv; f32: CUDA cores"}[name],
+                                 "cores as dkdv; bf16 at hd 256: eight warps "
+                                 "as dkdv; f32: CUDA cores"}[name],
         # over both training paths that run it; times at qwen3-0.6b's shape,
         # recurrentgemma-2b's (head_dim 256) under "shapes"
         "launches": sum(n.get(name, 0) for n in trained_launches),
-        "max_abs_err": bwd_errs[name], **bwd_time[name],
-        "shapes": [{"shape": list(RG_TRAIN_SHAPE),
-                    "path": "recurrentgemma-2b training",
-                    "launches": launches["recurrentgemma-2b training"].get(name, 0),
-                    **rg_bwd_time[name]}]}
+        "max_abs_err": bwd_errs[TRAIN_SHAPE][name], **bwd_time[name],
+        "shapes": [{"shape": list(shape), "path": "recurrentgemma-2b training",
+                    "launches": launched, "max_abs_err": bwd_errs[shape][name],
+                    **times[name]}
+                   for shape, times, launched in (
+                       (RG_TRAIN_SHAPE, rg_bwd_time, 0),  # the cell runs batch 1
+                       (RG_TRAIN_SHAPE_B1, rg1_bwd_time, launches[
+                           "recurrentgemma-2b training"].get(name, 0)))]}
         for name in BWD_KERNEL_NAMES]
     ssd_bwd = [{
         "name": name, "route": "cuda",
-        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_bwd.cu",
+        # the training path's bf16 dS runs ssd_bf16.cu's tensor-core kernel
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/"
+                  + ("ssd_bf16.cu" if name == "ssd_bwd_dstate" else "ssd_bwd.cu"),
         # no TPU kernel computes a gradient: these are the gradient of the
         # forward's TPU kernel and its state passing
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:48",
         "note": "no TPU counterpart: the gradient of ssd_chunk_pallas and its "
                 "state passing",
         "design": {
-            "ssd_bwd_dstate": "a block per (batch x chunk, head): tiles of 32 "
-                              "rows, exp(cum) dy^T C on the CUDA cores, f32",
+            "ssd_bwd_dstate": "bf16: tensor cores (csrc/ssd_bf16.cu: a block "
+                              "per (batch x chunk, group, 6 heads), C staged "
+                              "once, dy exp(cum) as hi + lo bf16, mma.sync "
+                              "m16n8k16); f32: a block per (batch x chunk, "
+                              "head), CUDA cores",
             "ssd_bwd_state_pass": "reverse recurrence over the chunks, 4 "
                                   "elements a thread, block partials of the "
                                   "chunk-end term",
@@ -1998,7 +2072,8 @@ def main() -> int:
         # over every path that runs it; times at qwen3-0.6b's shape, each
         # serving shape's own under "shapes"
         "launches": sum(n.get("flash_attn_fwd", 0) for n in launches.values()),
-        "max_abs_err": max(errs.values()), "lse_max_abs_err": bwd_errs["lse"],
+        "max_abs_err": max(errs.values()),
+        "lse_max_abs_err": bwd_errs[TRAIN_SHAPE]["lse"],
         **timings[SERVE_SHAPE],
         "shapes": flash_shapes}, {
         "name": "ssd_chunk", "route": "cuda",

@@ -23,23 +23,29 @@
 // H 16, KH 8, hd 64, causal, bf16) the gradient is five products of the
 // forward's size, 85.9 GFLOP (0.087 ms at 989 TFLOP/s), against about 101
 // MB of q, k, v, o, dO, L, dq, dk and dv (0.030 ms at 3.35 TB/s): bound by
-// operations.  The layout of the work is the same for both designs below,
-// and deterministic:
+// operations; at recurrentgemma-2b's (B 4, S 2048, H 10, KH 1, hd 256,
+// window 2048) 215 GFLOP (0.217 ms) against about 185 MB, also operations.
+// The layout of the work is the same for every design below, and
+// deterministic:
 //   * dK and dV: a block per (batch * KV head, 64-key tile) keeps K, V and
 //     the dK and dV accumulators of its keys on chip and walks the group's
 //     query heads and the query tiles that can see the tile; dK and dV are
-//     written once, with no atomics, so the result does not depend on the
-//     order in which blocks run;
+//     written once (bf16 at head_dim 256: each part of a split walk writes
+//     its f32 partials once), with no atomics, so the result does not
+//     depend on the order in which blocks run;
 //   * dQ: a block per (batch * head, query tile) walks the key tiles, and
 //     recomputes S and dP (two products more than the minimum of five);
 //   * D = rowsum(dO o O) first, a warp a row.
 //
-// bf16 at head_dim 16 and 64 (the training shapes): the tensor-core kernels
-// (`*_tc_kernel`, described where they are defined), mma.sync on bf16 tiles
-// with P and dS in registers.
+// bf16 at head_dim 16 and 64 (qwen3-0.6b's and the reduced configs'): the
+// tensor-core kernels (`*_tc_kernel`, described where they are defined),
+// mma.sync on bf16 tiles with P and dS in registers.  bf16 at head_dim 256
+// (recurrentgemma-2b's): the eight-warp tensor-core kernels
+// (`*_wide_kernel`), P and dS through shared memory, the dK/dV walk split
+// into parts so that batch 1 fills the card.
 //
-// f32, and bf16 at head_dim 128 and 256: the CUDA-core kernels, f32
-// arithmetic throughout, the yardstick of the f32 gates:
+// f32, and bf16 at head_dim 128: the CUDA-core kernels, f32 arithmetic
+// throughout, the yardstick of the f32 gates:
 //   * each product is a register-tiled product on f32 tiles in shared
 //     memory: a thread owns a micro-tile of outputs (4 x 4 scores at hd 64)
 //     and reads float4 rows whose padded stride (hd + 4 floats) puts eight
@@ -49,6 +55,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -415,12 +422,13 @@ template <int HD> __host__ __device__ constexpr int tc_dq_smem_bytes() {
 
 // Copies a 64-row bf16 tile of a (B, S, heads, HD) tensor, from position
 // pos0 of head `head`, into a swizzled tile at `dst`; rows past S are zeros.
-template <int HD>
+// NTHREADS threads take part.
+template <int HD, int NTHREADS = TC_THREADS>
 __device__ __forceinline__ void tc_load_tile(uint32_t dst, const __nv_bfloat16* __restrict__ src,
                                              int b, int pos0, int S, int heads, int head) {
   constexpr int W = HD / 8;                // 16-byte chunks per row
-  constexpr int RS = TC_THREADS / W;       // rows per round
-  static_assert(TC_THREADS % W == 0 && TC_ROWS % RS == 0 && RS >= 8, "whole copy rounds");
+  constexpr int RS = NTHREADS / W;         // rows per round
+  static_assert(NTHREADS % W == 0 && TC_ROWS % RS == 0 && RS >= 8, "whole copy rounds");
   const int r = threadIdx.x / W, c = threadIdx.x % W;
   const __nv_bfloat16* base = src + ((size_t)b * S * heads + head) * HD;
 #pragma unroll
@@ -432,20 +440,20 @@ __device__ __forceinline__ void tc_load_tile(uint32_t dst, const __nv_bfloat16* 
 }
 
 // Products of a warp's 16 rows of A (a swizzled tile at `aw`, its rows
-// 16 w ..) with the 64 rows of B (at `bt`) over head_dim: acc[n] holds
-// columns 8 n .. 8 n + 7 (rows of B).
-template <int HD>
-__device__ __forceinline__ void tc_rows_by_rows(float (&acc)[TC_ROWS / 8][4], uint32_t aw,
+// 16 w ..) with NB rows of B (at `bt`, a multiple of 16 rows into its tile)
+// over head_dim: acc[n] holds columns 8 n .. 8 n + 7 (rows of B).
+template <int HD, int NB = TC_ROWS>
+__device__ __forceinline__ void tc_rows_by_rows(float (&acc)[NB / 8][4], uint32_t aw,
                                                 uint32_t bt, const LaneReads<HD / 8>& a_reads,
                                                 const LaneReads<HD / 8>& b_reads) {
 #pragma unroll
-  for (int n = 0; n < TC_ROWS / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < NB / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     uint32_t a[4];
     ldmatrix_x4(a, aw + a_reads.at(0, 2 * kk));
 #pragma unroll
-    for (int p = 0; p < TC_ROWS / 16; ++p) {
+    for (int p = 0; p < NB / 16; ++p) {
       uint32_t bm[4];
       ldmatrix_x4(bm, bt + b_reads.at(16 * p, 2 * kk));
       mma_bf16(acc[2 * p], a, bm[0], bm[1]);
@@ -477,22 +485,30 @@ __device__ __forceinline__ void tc_acc_times_tile(float (&out)[HD / 8][4],
   }
 }
 
-// Writes a warp's 16 rows (row0 + g, row0 + g + 8) of an f32 accumulator,
-// times `mul`, as bf16 into a (B, S, heads, HD) tensor.
-template <int HD>
-__device__ __forceinline__ void tc_store_rows(__nv_bfloat16* __restrict__ dst,
-                                              const float (&acc)[HD / 8][4], float mul, int b,
-                                              int row0, int S, int heads, int head) {
+// Two neighbouring values of an output row, as bf16 or f32.
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Writes a warp's 16 rows (row0 + g, row0 + g + 8) of an f32 accumulator of
+// NC columns, times `mul`, into columns col0 .. col0 + NC - 1 of a
+// (B, S, heads, HD) tensor of bf16 or f32.
+template <int HD, int NC = HD, typename T>
+__device__ __forceinline__ void tc_store_rows(T* __restrict__ dst, const float (&acc)[NC / 8][4],
+                                              float mul, int b, int row0, int S, int heads,
+                                              int head, int col0 = 0) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int pos = row0 + g + 8 * i;
     if (pos < S) {
-      __nv_bfloat16* out = dst + (((size_t)b * S + pos) * heads + head) * HD + 2 * t;
+      T* out = dst + (((size_t)b * S + pos) * heads + head) * HD + col0 + 2 * t;
 #pragma unroll
-      for (int d = 0; d < HD / 8; ++d)
-        *reinterpret_cast<uint32_t*>(out + 8 * d) =
-            pack_bf16(acc[d][2 * i] * mul, acc[d][2 * i + 1] * mul);
+      for (int d = 0; d < NC / 8; ++d)
+        store2(out + 8 * d, acc[d][2 * i] * mul, acc[d][2 * i + 1] * mul);
     }
   }
 }
@@ -686,9 +702,296 @@ flash_attn_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at head_dim 256 (recurrentgemma-2b): the wide tensor-core kernels.
+// The products, tiles and copies are those of the kernels above, with 64
+// rows a tile; what head_dim 256 changes:
+//   * registers: dK and dV of 16 keys at 256 columns would be 256 f32 a
+//     thread.  So a block has eight warps: warp w owns row group w % 4 (16
+//     of the 64 rows) and half w / 4 of the columns.  For S and dP (dkdv:
+//     S^T = K Q^T, dP^T = V dO^T; dq: S = Q K^T, dP = dO V^T, contracted
+//     over all 256 columns) the half is one of the tile's two 32-row halves
+//     of queries (dkdv) or keys (dq); P and dS, rounded to bf16, go through
+//     a 64 x 64 swizzled tile in shared memory, and every warp then
+//     multiplies its row group's 16 rows of them by its 128 columns of dO
+//     and Q (dkdv) or K (dq).  Accumulators: 2 x 64 f32 a thread in dkdv,
+//     64 in dq; 256 threads at up to 255 registers, one block an SM;
+//   * shared memory: K and V (dkdv) or Q and dO (dq) of the block, two
+//     cp.async stages of the other pair, and the P / dS tiles: 214,016 and
+//     204,800 bytes;
+//   * blocks: dkdv has a block per (batch * KV head, 64 keys), only 32 at
+//     recurrentgemma-2b's batch 1 and S 2048 for 132 SMs.  So each key
+//     tile's walk over (query head, query tile) is cut into `splits` equal
+//     parts, one block each (the wrapper picks splits from the grid and the
+//     SM count); with splits > 1 each part writes f32 partial dK and dV
+//     ((splits, B, S, KH, 256), dK already scaled) and the wrapper sums
+//     them over the parts in one fixed-order PyTorch sum, then rounds once
+//     to bf16: every element is written by one thread in one order, no
+//     atomics.  dq has a block per (batch * head, 64 queries), 320 at batch
+//     1, and needs no split.
+// Skips and masks are the kernels' above, by row group.
+
+constexpr int WIDE_THREADS = 256;  // eight warps
+template <int HD> __host__ __device__ constexpr bool wide_path() { return HD == 256; }
+constexpr int PS_TILE = TC_ROWS * TC_ROWS * 2;  // a 64 x 64 bf16 tile of P or dS
+template <int HD> __host__ __device__ constexpr int wide_dkdv_smem_bytes() {
+  return 6 * tc_tile_bytes<HD>() + 2 * PS_TILE + 2 * 2 * TC_ROWS * 4;
+}
+template <int HD> __host__ __device__ constexpr int wide_dq_smem_bytes() {
+  return 6 * tc_tile_bytes<HD>() + PS_TILE;
+}
+
+// Writes a warp's 16 x 32 block of an f32 accumulator (rows 16 rg + g and
+// + 8, columns 32 hf + 8 n + 2 t and + 1) as bf16 into the swizzled 64 x 64
+// tile at `tile`.
+__device__ __forceinline__ void wide_put_scores(uint32_t tile, const float (&x)[4][4], int rg,
+                                                int hf) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int chunk = 4 * hf + n;
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(tile + swizzle<8>(16 * rg + g, chunk) + 4 * t),
+                 "r"(pack_bf16(x[n][0], x[n][1]))
+                 : "memory");
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(tile + swizzle<8>(16 * rg + g + 8, chunk) + 4 * t),
+                 "r"(pack_bf16(x[n][2], x[n][3]))
+                 : "memory");
+  }
+}
+
+// out += X . T over the 64 rows of T, for the warp's 16 rows of X (bf16 in
+// the swizzled 64 x 64 tile, from `xw`, its 16-row block) and columns
+// 16 c0 .. of T (a swizzled 64-row tile at `tt`, read by ldmatrix.trans).
+template <int HD>
+__device__ __forceinline__ void wide_tile_times_tile(float (&out)[HD / 16][4], uint32_t xw,
+                                                     uint32_t tt, const LaneReads<8>& x_reads,
+                                                     const LaneReads<HD / 8>& t_reads, int c0) {
+#pragma unroll
+  for (int kk = 0; kk < TC_ROWS / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, xw + x_reads.at(0, 2 * kk));
+#pragma unroll
+    for (int p = 0; p < HD / 32; ++p) {
+      uint32_t bm[4];
+      ldmatrix_x4_trans(bm, tt + t_reads.at(16 * kk, c0 + 2 * p));
+      mma_bf16(out[2 * p], a, bm[0], bm[1]);
+      mma_bf16(out[2 * p + 1], a, bm[2], bm[3]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+flash_attn_bwd_dkdv_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                const __nv_bfloat16* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                                float* __restrict__ dk_part, float* __restrict__ dv_part, int S,
+                                int H, int KH, float scale, int causal, int window, int splits) {
+  constexpr int W = HD / 8, TILE = tc_tile_bytes<HD>(), HALF = HD / 2;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t ks = smem_addr(tc_smem), vs = ks + TILE;
+  const uint32_t qs = vs + TILE;  // two stages of Q, then two of dO
+  const uint32_t gs = qs + 2 * TILE;
+  const uint32_t ps = gs + 2 * TILE, dss = ps + PS_TILE;  // P^T and dS^T: [key][query]
+  float* rowstat = reinterpret_cast<float*>(tc_smem + 6 * TILE + 2 * PS_TILE);  // [stage][L | D][64]
+
+  const int split = blockIdx.x % splits, bkh = blockIdx.x / splits;
+  const int b = bkh / KH, kh = bkh % KH, G = H / KH;
+  const int n0 = blockIdx.y * TC_ROWS;  // tile 0, the most expensive under a causal mask, first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % 4, hf = warp / 4;
+  const int g = lane / 4, t = lane % 4, mat = lane / 8, r8 = lane % 8;
+  const int wk0 = n0 + 16 * rg;  // the row group's first key
+  const float scale_log2 = scale * LOG2E;
+
+  // The query tiles that can see a key of this tile, for each head of the
+  // group, and this block's part of them.
+  int m_begin = 0, m_end = S;
+  if (causal) m_begin = n0;
+  if (window > 0) m_end = (int)min((long long)S, (long long)n0 + TC_ROWS - 1 + window);
+  const int per_head = (m_end - m_begin + TC_ROWS - 1) / TC_ROWS;
+  const long long n_iter = (long long)G * per_head;
+  const int it_begin = (int)(n_iter * split / splits), it_end = (int)(n_iter * (split + 1) / splits);
+
+  auto load_queries = [&](int it, int stage) {
+    const int h = kh * G + it / per_head, m0 = m_begin + (it % per_head) * TC_ROWS;
+    tc_load_tile<HD, WIDE_THREADS>(qs + stage * TILE, q, b, m0, S, H, h);
+    tc_load_tile<HD, WIDE_THREADS>(gs + stage * TILE, dout, b, m0, S, H, h);
+    if (threadIdx.x < 2 * TC_ROWS) {  // L and D of the tile's rows
+      const int i = threadIdx.x % TC_ROWS, which = threadIdx.x / TC_ROWS;
+      const float* src = (which ? delta : lse) + ((size_t)b * H + h) * S;
+      const bool ok = m0 + i < S;
+      const uint32_t dst = smem_addr(rowstat + (2 * stage + which) * TC_ROWS + i);
+      cp_async4(dst, ok ? src + m0 + i : src, ok);
+    }
+  };
+
+  tc_load_tile<HD, WIDE_THREADS>(ks, k, b, n0, S, KH, kh);
+  tc_load_tile<HD, WIDE_THREADS>(vs, v, b, n0, S, KH, kh);
+  if (it_begin < it_end) load_queries(it_begin, 0);
+  cp_async_commit();
+
+  const LaneReads<W> a_reads(r8, mat & 1, mat >> 1), b_reads(r8, mat >> 1, mat & 1);
+  const LaneReads<8> x_reads(r8, mat & 1, mat >> 1);
+  const uint32_t kw = ks + 16 * rg * W * 16, vw = vs + 16 * rg * W * 16;
+  const uint32_t pw = ps + 16 * rg * 8 * 16, dsw = dss + 16 * rg * 8 * 16;
+  float dk_acc[HD / 16][4], dv_acc[HD / 16][4];
+#pragma unroll
+  for (int d = 0; d < HD / 16; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[d][e] = dv_acc[d][e] = 0.f;
+
+  for (int it = it_begin; it < it_end; ++it) {
+    const int stage = (it - it_begin) & 1;
+    cp_async_wait<0>();  // tile it has arrived
+    __syncthreads();     // ... for every thread; every warp is done with tile it - 1
+    if (it + 1 < it_end) {
+      load_queries(it + 1, stage ^ 1);  // in flight while tile it is computed
+      cp_async_commit();
+    }
+    const int m0 = m_begin + (it % per_head) * TC_ROWS;
+    // Skip a tile none of whose queries sees a key of the row group (uniform
+    // over both warps of the group).
+    const bool unseen = wk0 >= S || (causal && m0 + TC_ROWS - 1 < wk0) ||
+                        (window > 0 && m0 - (wk0 + 15) >= window);
+    const uint32_t qst = qs + stage * TILE, gst = gs + stage * TILE;
+    if (!unseen) {
+      const float* Ls = rowstat + 2 * stage * TC_ROWS + 32 * hf;  // the warp's 32 queries
+      const float* Ds = Ls + TC_ROWS;
+      const int mq0 = m0 + 32 * hf;
+      float p[4][4], ds[4][4];
+      tc_rows_by_rows<HD, 32>(p, kw, qst + 32 * hf * W * 16, a_reads, b_reads);   // S^T
+      tc_rows_by_rows<HD, 32>(ds, vw, gst + 32 * hf * W * 16, a_reads, b_reads);  // dP^T
+      const bool edge = wk0 + 16 > S || mq0 + 32 > S || (causal && mq0 < wk0 + 15) ||
+                        (window > 0 && mq0 + 31 - wk0 >= window);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * n + 2 * t + (e & 1);  // the query, in the warp's 32
+          float pe = fast_exp2(fmaf(p[n][e], scale_log2, -Ls[col] * LOG2E));
+          if (edge && !key_visible(mq0 + col, wk0 + g + 8 * (e >> 1), S, causal, window)) pe = 0.f;
+          p[n][e] = pe;
+          ds[n][e] = pe * (ds[n][e] - Ds[col]);
+        }
+      wide_put_scores(ps, p, rg, hf);
+      wide_put_scores(dss, ds, rg, hf);
+    }
+    __syncthreads();  // P^T and dS^T of both halves of every row group are in place
+    if (!unseen) {
+      wide_tile_times_tile<HD>(dv_acc, pw, gst, x_reads, a_reads, HALF / 8 * hf);   // dV += P^T dO
+      wide_tile_times_tile<HD>(dk_acc, dsw, qst, x_reads, a_reads, HALF / 8 * hf);  // dK += dS^T Q
+    }
+  }
+  cp_async_wait<0>();  // a block with no part of the walk still loaded K and V
+  if (splits == 1) {
+    tc_store_rows<HD, HALF>(dk, dk_acc, scale, b, wk0, S, KH, kh, HALF * hf);
+    tc_store_rows<HD, HALF>(dv, dv_acc, 1.f, b, wk0, S, KH, kh, HALF * hf);
+  } else {
+    const size_t part = (size_t)split * (gridDim.x / splits) * S * HD;  // (B * KH) * S * HD each
+    tc_store_rows<HD, HALF>(dk_part + part, dk_acc, scale, b, wk0, S, KH, kh, HALF * hf);
+    tc_store_rows<HD, HALF>(dv_part + part, dv_acc, 1.f, b, wk0, S, KH, kh, HALF * hf);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+flash_attn_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, int S, int H, int KH, float scale,
+                              int causal, int window) {
+  constexpr int W = HD / 8, TILE = tc_tile_bytes<HD>(), HALF = HD / 2;
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t qs = smem_addr(tc_smem), gs = qs + TILE;
+  const uint32_t ks = gs + TILE;  // two stages of K, then two of V
+  const uint32_t vs = ks + 2 * TILE;
+  const uint32_t dss = vs + 2 * TILE;  // dS: [query][key]
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H, kh = h / (H / KH);
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // longest causal tiles first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % 4, hf = warp / 4;
+  const int g = lane / 4, t = lane % 4, mat = lane / 8, r8 = lane % 8;
+  const int wq0 = m0 + 16 * rg;  // the row group's first query
+  const float scale_log2 = scale * LOG2E;
+
+  // The keys any row of this tile can see: at least one tile, since m0 < S.
+  int k_begin = 0, k_end = S;
+  if (causal) k_end = min(S, m0 + TC_ROWS);
+  if (window > 0) k_begin = max(0, m0 - window + 1) / TC_ROWS * TC_ROWS;
+  const int n_tiles = (k_end - k_begin + TC_ROWS - 1) / TC_ROWS;
+
+  tc_load_tile<HD, WIDE_THREADS>(qs, q, b, m0, S, H, h);
+  tc_load_tile<HD, WIDE_THREADS>(gs, dout, b, m0, S, H, h);
+  tc_load_tile<HD, WIDE_THREADS>(ks, k, b, k_begin, S, KH, kh);
+  tc_load_tile<HD, WIDE_THREADS>(vs, v, b, k_begin, S, KH, kh);
+  cp_async_commit();
+
+  // L (in base 2) and D of the thread's two rows, wq0 + g and wq0 + g + 8
+  float lrow[2], drow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pos = wq0 + g + 8 * i;
+    const size_t off = ((size_t)b * H + h) * S + pos;
+    lrow[i] = pos < S ? lse[off] * LOG2E : 0.f;
+    drow[i] = pos < S ? delta[off] : 0.f;
+  }
+
+  const LaneReads<W> a_reads(r8, mat & 1, mat >> 1), b_reads(r8, mat >> 1, mat & 1);
+  const LaneReads<8> x_reads(r8, mat & 1, mat >> 1);
+  const uint32_t qw = qs + 16 * rg * W * 16, gw = gs + 16 * rg * W * 16;
+  const uint32_t dsw = dss + 16 * rg * 8 * 16;
+  float dq_acc[HD / 16][4];
+#pragma unroll
+  for (int d = 0; d < HD / 16; ++d) dq_acc[d][0] = dq_acc[d][1] = dq_acc[d][2] = dq_acc[d][3] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int n0 = k_begin + j * TC_ROWS;
+    const int stage = j & 1;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < n_tiles) {
+      tc_load_tile<HD, WIDE_THREADS>(ks + (stage ^ 1) * TILE, k, b, n0 + TC_ROWS, S, KH, kh);
+      tc_load_tile<HD, WIDE_THREADS>(vs + (stage ^ 1) * TILE, v, b, n0 + TC_ROWS, S, KH, kh);
+      cp_async_commit();
+    }
+    const bool unseen = wq0 >= S || (causal && n0 > wq0 + 15) ||
+                        (window > 0 && n0 + TC_ROWS - 1 <= wq0 - window);
+    const uint32_t kst = ks + stage * TILE, vst = vs + stage * TILE;
+    if (!unseen) {
+      const int nk0 = n0 + 32 * hf;  // the warp's first key
+      float p[4][4], ds[4][4];
+      tc_rows_by_rows<HD, 32>(p, qw, kst + 32 * hf * W * 16, a_reads, b_reads);   // S = Q K^T
+      tc_rows_by_rows<HD, 32>(ds, gw, vst + 32 * hf * W * 16, a_reads, b_reads);  // dP = dO V^T
+      const bool edge = nk0 + 32 > S || wq0 + 16 > S || (causal && nk0 + 31 > wq0) ||
+                        (window > 0 && wq0 + 15 - nk0 >= window);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float pe = fast_exp2(fmaf(p[n][e], scale_log2, -lrow[i]));
+          const int key = nk0 + 8 * n + 2 * t + (e & 1);
+          if (edge && !key_visible(wq0 + g + 8 * i, key, S, causal, window)) pe = 0.f;
+          ds[n][e] = pe * (ds[n][e] - drow[i]);
+        }
+      wide_put_scores(dss, ds, rg, hf);
+    }
+    __syncthreads();  // dS of both halves of every row group is in place
+    if (!unseen) wide_tile_times_tile<HD>(dq_acc, dsw, kst, x_reads, a_reads, HALF / 8 * hf);
+  }
+  tc_store_rows<HD, HALF>(dq, dq_acc, scale, b, wq0, S, H, h, HALF * hf);
+}
+
+// ---------------------------------------------------------------------------
 // Launchers, by head_dim and type (dtype 0 = float32, 1 = bfloat16): bf16 at
-// head_dim 16 and 64 takes the tensor-core kernels, the rest the CUDA-core
-// ones.
+// head_dim 16 and 64 takes the tensor-core kernels, bf16 at 256 the wide
+// ones, the rest the CUDA-core ones.
 
 template <int HD, typename T>
 int pre_t(const void* o, const void* dout, void* delta, int B, int S, int H, cudaStream_t st) {
@@ -703,12 +1006,32 @@ int pre_t(const void* o, const void* dout, void* delta, int B, int S, int H, cud
 template <typename T, int HD> constexpr bool use_tc() {
   return sizeof(T) == 2 && tc_path<HD>();
 }
+template <typename T, int HD> constexpr bool use_wide() {
+  return sizeof(T) == 2 && wide_path<HD>();
+}
 
 template <int HD, typename T>
 int dkdv_t(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-           const void* delta, void* dk, void* dv, int B, int S, int H, int KH, float scale,
-           int causal, int window, cudaStream_t st) {
-  if constexpr (use_tc<T, HD>()) {
+           const void* delta, void* dk, void* dv, void* dk_part, void* dv_part, int B, int S,
+           int H, int KH, float scale, int causal, int window, int splits, cudaStream_t st) {
+  if constexpr (use_wide<T, HD>()) {
+    auto kernel = flash_attn_bwd_dkdv_wide_kernel<HD>;
+    if (splits < 1 || (long long)B * KH * splits > INT_MAX || (splits > 1 && !(dk_part && dv_part)))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           wide_dkdv_smem_bytes<HD>());
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(B * KH * splits, (S + TC_ROWS - 1) / TC_ROWS);
+    kernel<<<grid, WIDE_THREADS, wide_dkdv_smem_bytes<HD>(), st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+        static_cast<float*>(dk_part), static_cast<float*>(dv_part), S, H, KH, scale, causal,
+        window, splits);
+    return (int)cudaGetLastError();
+  } else if constexpr (use_tc<T, HD>()) {
+    if (splits != 1) return (int)cudaErrorInvalidValue;  // only the wide kernel splits
     auto kernel = flash_attn_bwd_dkdv_tc_kernel<HD>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            tc_dkdv_smem_bytes<HD>());
@@ -722,6 +1045,7 @@ int dkdv_t(const void* q, const void* k, const void* v, const void* dout, const 
         causal, window);
     return (int)cudaGetLastError();
   } else {
+    if (splits != 1) return (int)cudaErrorInvalidValue;
     auto kernel = flash_attn_bwd_dkdv_kernel<HD, T>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            dkdv_smem_bytes<HD>());
@@ -740,7 +1064,19 @@ template <int HD, typename T>
 int dq_t(const void* q, const void* k, const void* v, const void* dout, const void* lse,
          const void* delta, void* dq, int B, int S, int H, int KH, float scale, int causal,
          int window, cudaStream_t st) {
-  if constexpr (use_tc<T, HD>()) {
+  if constexpr (use_wide<T, HD>()) {
+    auto kernel = flash_attn_bwd_dq_wide_kernel<HD>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           wide_dq_smem_bytes<HD>());
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(B * H, (S + TC_ROWS - 1) / TC_ROWS);
+    kernel<<<grid, WIDE_THREADS, wide_dq_smem_bytes<HD>(), st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<__nv_bfloat16*>(dq), S, H, KH, scale, causal, window);
+    return (int)cudaGetLastError();
+  } else if constexpr (use_tc<T, HD>()) {
     auto kernel = flash_attn_bwd_dq_tc_kernel<HD>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            tc_dq_smem_bytes<HD>());
@@ -774,7 +1110,10 @@ int attributes_t(int which, int* regs, int* local_bytes, int* smem_bytes) {
   if (which == 0) {
     err = cudaFuncGetAttributes(&attr, flash_attn_bwd_pre_kernel<HD, T>);
   } else if (which == 1) {
-    if constexpr (use_tc<T, HD>()) {
+    if constexpr (use_wide<T, HD>()) {
+      err = cudaFuncGetAttributes(&attr, flash_attn_bwd_dkdv_wide_kernel<HD>);
+      dynamic = wide_dkdv_smem_bytes<HD>();
+    } else if constexpr (use_tc<T, HD>()) {
       err = cudaFuncGetAttributes(&attr, flash_attn_bwd_dkdv_tc_kernel<HD>);
       dynamic = tc_dkdv_smem_bytes<HD>();
     } else {
@@ -782,7 +1121,10 @@ int attributes_t(int which, int* regs, int* local_bytes, int* smem_bytes) {
       dynamic = dkdv_smem_bytes<HD>();
     }
   } else if (which == 2) {
-    if constexpr (use_tc<T, HD>()) {
+    if constexpr (use_wide<T, HD>()) {
+      err = cudaFuncGetAttributes(&attr, flash_attn_bwd_dq_wide_kernel<HD>);
+      dynamic = wide_dq_smem_bytes<HD>();
+    } else if constexpr (use_tc<T, HD>()) {
       err = cudaFuncGetAttributes(&attr, flash_attn_bwd_dq_tc_kernel<HD>);
       dynamic = tc_dq_smem_bytes<HD>();
     } else {
@@ -835,13 +1177,18 @@ extern "C" int flash_attn_bwd_pre(const void* o, const void* dout, void* delta, 
   DISPATCH(hd, dtype, (pre_t<HD, T>(o, dout, delta, B, S, H, st)));
 }
 
+// splits: the parts of each key tile's query walk, one block each (1 but at
+// bf16 head_dim 256); with splits > 1 the kernel writes f32 partial dK (times
+// the scale) and dV into dk_part and dv_part, (splits, B, S, KH, hd) each, and
+// leaves dk and dv to the caller's sum over the parts.
 extern "C" int flash_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                                   const void* lse, const void* delta, void* dk, void* dv, int B,
-                                   int S, int H, int KH, int hd, int dtype, float scale,
-                                   int causal, int window, void* stream) {
+                                   const void* lse, const void* delta, void* dk, void* dv,
+                                   void* dk_part, void* dv_part, int B, int S, int H, int KH,
+                                   int hd, int dtype, float scale, int causal, int window,
+                                   int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DISPATCH(hd, dtype, (dkdv_t<HD, T>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KH, scale,
-                                     causal, window, st)));
+  DISPATCH(hd, dtype, (dkdv_t<HD, T>(q, k, v, dout, lse, delta, dk, dv, dk_part, dv_part, B, S,
+                                     H, KH, scale, causal, window, splits, st)));
 }
 
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

@@ -6,7 +6,10 @@ inputs the CUDA-core kernel; with ``return_lse`` it also returns each row's
 log-sum-exp for the backward.  ``flash_attention_bwd`` launches the three
 kernels of ``csrc/flash_attn_bwd.cu`` (D, then dK/dV, then dQ; bf16 at
 ``TC_BWD_HEAD_DIMS`` on the tensor cores, the rest on the CUDA cores), which
-have no TPU counterpart: they are the gradient of the forward.
+have no TPU counterpart: they are the gradient of the forward.  At
+``WIDE_BWD_HEAD_DIMS`` the dK/dV kernel cuts each key tile's walk over the
+query tiles into ``bwd_splits`` parts, one block each, and the wrapper sums
+their f32 partials in PyTorch.
 
 On a CPU tensor each wrapper computes its plain version (``ref.py``); on a
 CUDA tensor it launches its kernels or raises.
@@ -25,8 +28,15 @@ from .ref import attention_bwd_ref, attention_ref, lse_ref
 NAME = "flash_attn_fwd"
 BWD_SOURCE = "flash_attn_bwd"
 # head_dims at which bf16 runs the backward's tensor-core kernels; the rest,
-# and f32, run its CUDA-core kernels
-TC_BWD_HEAD_DIMS = (16, 64)
+# and f32, run its CUDA-core kernels.  At WIDE_BWD_HEAD_DIMS they are the
+# eight-warp kernels whose dK/dV kernel splits the query walk.
+TC_BWD_HEAD_DIMS = (16, 64, 256)
+WIDE_BWD_HEAD_DIMS = (256,)
+# The most parts bwd_splits cuts a key tile's query walk into: at
+# recurrentgemma-2b's batch 1 (32 key tiles) dK/dV took 1.42-1.44 ms unsplit,
+# 0.217-0.221 at 8 parts and more at 9 and 10; at batch 4 2 parts were the
+# fastest (tools/flash_bwd_splits.py on an NVIDIA H100 80GB HBM3, 700 W).
+MAX_BWD_SPLITS = 8
 # the backward's kernels, in launch order, each with its own launch count
 BWD_KERNELS = ("flash_attn_bwd_pre", "flash_attn_bwd_dkdv", "flash_attn_bwd_dq")
 # 16 is the reduced configs', 64 qwen3-0.6b's, 256 recurrentgemma-2b's
@@ -43,10 +53,28 @@ def _block_q(hd: int, dtype: torch.dtype) -> int:
     return {128: 32, 256: 16}.get(hd, 64)
 
 
-def _bwd_block(hd: int) -> int:
+def _bwd_block(hd: int, dtype: torch.dtype) -> int:
     """Query rows and keys per tile of the backward's kernels, as in the .cu
-    file (the same for both types)."""
-    return 32 if hd == 256 else 64
+    file: 64, but 32 in the CUDA-core kernels at hd 256."""
+    return 32 if hd == 256 and dtype != torch.bfloat16 else 64
+
+
+def bwd_splits(B: int, S: int, H: int, KH: int, hd: int, dtype: torch.dtype,
+               sms: int) -> int:
+    """Parts into which the dK/dV kernel cuts each key tile's walk over the
+    (query head, query tile) pairs that see it, one block each: 1 but at
+    bf16 ``WIDE_BWD_HEAD_DIMS``, whose kernel holds one block of 256
+    threads an SM.  There the grid has B * KH * ceil(S / 64) blocks before
+    the split (32 at recurrentgemma-2b's batch 1, for 132 SMs), and the
+    split aims at two blocks an SM, the nearest whole number of parts, at
+    most ``MAX_BWD_SPLITS`` and at most the walk of the longest key tile,
+    (H / KH) * ceil(S / 64) pairs."""
+    if dtype != torch.bfloat16 or hd not in WIDE_BWD_HEAD_DIMS:
+        return 1
+    tiles = -(-S // 64)
+    blocks = B * KH * tiles
+    return max(1, min(MAX_BWD_SPLITS, H // KH * tiles,
+                      (2 * sms + blocks // 2) // blocks))
 
 
 def _function():
@@ -133,7 +161,7 @@ def _bwd_functions():
     pre = lib.flash_attn_bwd_pre
     pre.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
     dkdv = lib.flash_attn_bwd_dkdv
-    dkdv.argtypes = [ptr] * 8 + [i32] * 6 + [ctypes.c_float, i32, i32, ptr]
+    dkdv.argtypes = [ptr] * 10 + [i32] * 6 + [ctypes.c_float, i32, i32, i32, ptr]
     dq = lib.flash_attn_bwd_dq
     dq.argtypes = [ptr] * 7 + [i32] * 6 + [ctypes.c_float, i32, i32, ptr]
     for fn in (pre, dkdv, dq):
@@ -168,7 +196,7 @@ def _check_bwd(q, k, v, o, lse, do, window):
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: expected "
                          f"{(B, H, S)} float32 from the forward")
     _check(q, k, v, window)
-    if -(-S // _bwd_block(hd)) > _MAX_GRID_Y:
+    if -(-S // _bwd_block(hd, q.dtype)) > _MAX_GRID_Y:
         raise ValueError(f"S={S} exceeds the backward kernels' grid")
     tensors = (q, k, v, o, lse, do)
     if any(t.device != q.device for t in tensors):
@@ -179,20 +207,39 @@ def _check_bwd(q, k, v, o, lse, do, window):
         raise ValueError("the backward kernels read 16-byte aligned rows")
 
 
-def bwd_buffers(q, k, v, o, lse, do, *, window: Optional[int] = None) -> dict:
+def bwd_buffers(q, k, v, o, lse, do, *, window: Optional[int] = None,
+                splits: Optional[int] = None) -> dict:
     """Checks the backward's inputs and allocates its scratch D and outputs:
-    the tensors ``launch_bwd`` takes, by name."""
+    the tensors ``launch_bwd`` takes, by name.  ``splits`` (default
+    ``bwd_splits`` on q's card) is the dK/dV kernel's; with more than one
+    part, the f32 partials dk_part and dv_part, (splits, B, S, KH, hd) each,
+    are allocated too."""
     _check_bwd(q, k, v, o, lse, do, window)
-    B, S, H, _ = q.shape
-    return {"q": q, "k": k, "v": v, "o": o, "lse": lse, "do": do,
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    if splits is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = bwd_splits(B, S, H, KH, hd, q.dtype, sms)
+    elif splits != 1 and (q.dtype != torch.bfloat16 or splits < 1
+                          or hd not in WIDE_BWD_HEAD_DIMS):
+        raise ValueError(f"splits={splits}: only bf16 at head_dim "
+                         f"{WIDE_BWD_HEAD_DIMS} splits the dK/dV kernel")
+    bufs = {"q": q, "k": k, "v": v, "o": o, "lse": lse, "do": do,
             "delta": torch.empty((B, H, S), dtype=torch.float32, device=q.device),
             "dq": torch.empty_like(q), "dk": torch.empty_like(k),
-            "dv": torch.empty_like(v)}
+            "dv": torch.empty_like(v), "splits": splits, "dk_part": None,
+            "dv_part": None}
+    if splits > 1:
+        for name in ("dk_part", "dv_part"):
+            bufs[name] = torch.empty((splits, *k.shape), dtype=torch.float32,
+                                     device=q.device)
+    return bufs
 
 
 _BWD_ARGS = {  # each kernel's tensors, in its C signature's order
     "flash_attn_bwd_pre": ("o", "do", "delta"),
-    "flash_attn_bwd_dkdv": ("q", "k", "v", "do", "lse", "delta", "dk", "dv"),
+    "flash_attn_bwd_dkdv": ("q", "k", "v", "do", "lse", "delta", "dk", "dv",
+                            "dk_part", "dv_part"),
     "flash_attn_bwd_dq": ("q", "k", "v", "do", "lse", "delta", "dq"),
 }
 
@@ -200,21 +247,29 @@ _BWD_ARGS = {  # each kernel's tensors, in its C signature's order
 def launch_bwd(name: str, bufs: dict, *, causal: bool,
                window: Optional[int]) -> None:
     """Launches backward kernel ``name`` on ``bufs`` (from ``bwd_buffers``)
-    and counts it; ``flash_attention_bwd`` launches the three in order."""
+    and counts it; ``flash_attention_bwd`` launches the three in order.
+    dK/dV split into parts ends with the sum of its partials over the parts
+    (one fixed-order PyTorch sum a tensor, rounded once to bf16)."""
     q = bufs["q"]
     B, S, H, hd = q.shape
     ints = (B, S, H, hd) if name == "flash_attn_bwd_pre" else (
         B, S, H, bufs["k"].shape[2], hd)
     tail = () if name == "flash_attn_bwd_pre" else (
         1.0 / hd ** 0.5, int(causal), window or 0)
+    if name == "flash_attn_bwd_dkdv":
+        tail += (bufs["splits"],)
     fn = _bwd_functions()[name]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(bufs[t].data_ptr() for t in _BWD_ARGS[name]), *ints,
-                 _DTYPES[q.dtype], *tail, stream)
+        err = fn(*(None if bufs[t] is None else bufs[t].data_ptr()
+                   for t in _BWD_ARGS[name]), *ints, _DTYPES[q.dtype], *tail,
+                 stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
+    if name == "flash_attn_bwd_dkdv" and bufs["splits"] > 1:
+        bufs["dk"].copy_(bufs["dk_part"].sum(0))
+        bufs["dv"].copy_(bufs["dv_part"].sum(0))
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

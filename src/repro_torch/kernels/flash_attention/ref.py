@@ -9,6 +9,8 @@ statistic the forward kernel saves for the backward.
 ``attention_bwd_ref``  — the gradient, written out from that statistic as
 the backward kernels compute it (the reference has no counterpart: its
 gradients come from autograd through its jnp paths).
+``dkdv_partials_ref`` — the parts of dK and dV that the dK/dV kernel writes
+when it splits each key tile's walk over the query tiles.
 """
 from __future__ import annotations
 
@@ -110,6 +112,21 @@ def lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
     return L.reshape(B, H, S)
 
 
+def _bwd_terms(q, k, v, o, lse, do, causal, window):
+    """P and dS (B, KH, g, S, S), dO and q as (B, S, KH, g, hd), all f32."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    g = H // KH
+    s, mask = _scores(q, k, causal, window)
+    L = lse.float().reshape(B, KH, g, S)[..., None]
+    p = torch.where(mask, torch.exp(s - L), 0.0)  # (B, KH, g, S, S)
+    dof = do.float().reshape(B, S, KH, g, hd)
+    D = (do.float() * o.float()).sum(-1).reshape(B, S, KH, g)
+    D = D.permute(0, 2, 3, 1)[..., None]  # (B, KH, g, S, 1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
+    return p, p * (dp - D), dof, q.float().reshape(B, S, KH, g, hd)
+
+
 def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
                       window: Optional[int] = None):
     """The gradient of self-attention, written out (not autograd).
@@ -120,20 +137,41 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     dK = scale dS^T Q, dK and dV summed over the H/KH query heads of each KV
     group.  All in f32; returns (dq, dk, dv) in q's dtype."""
     B, S, H, hd = q.shape
-    KH = k.shape[2]
-    g = H // KH
     scale = 1.0 / math.sqrt(hd)
-    s, mask = _scores(q, k, causal, window)
-    L = lse.float().reshape(B, KH, g, S)[..., None]
-    p = torch.where(mask, torch.exp(s - L), 0.0)  # (B, KH, g, S, S)
-    dof = do.float().reshape(B, S, KH, g, hd)
-    D = (do.float() * o.float()).sum(-1).reshape(B, S, KH, g)
-    D = D.permute(0, 2, 3, 1)[..., None]  # (B, KH, g, S, 1)
+    p, ds, dof, qf = _bwd_terms(q, k, v, o, lse, do, causal, window)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
-    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
-    ds = p * (dp - D)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
-    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds,
-                      q.float().reshape(B, S, KH, g, hd)) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
     return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(q.dtype),
             dv.to(q.dtype))
+
+
+def dkdv_partials_ref(q, k, v, o, lse, do, *, splits: int, causal: bool = True,
+                      window: Optional[int] = None, block: int = 64):
+    """The f32 parts of dK and dV that the dK/dV kernel writes with
+    ``splits`` > 1: for each ``block``-key tile it walks the (query head,
+    query tile) pairs that can see a key of the tile, head by head (causal:
+    the tiles from the key tile's own; a window: up to the tile's last key
+    plus the window), cut into ``splits`` equal runs, [n s / splits,
+    n (s + 1) / splits) of n pairs, one a part; part s sums the terms of
+    its pairs.  Returns (dk_part, dv_part), (splits, B, S, KH, hd) each, dK
+    already scaled; over the parts they sum to ``attention_bwd_ref``'s dk
+    and dv before rounding."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    p, ds, dof, qf = _bwd_terms(q, k, v, o, lse, do, causal, window)
+    # which[s, g, query, key]: 1 where the pair lies in part s's run
+    which = torch.zeros((splits, G, S, S), dtype=torch.float32, device=q.device)
+    for n0 in range(0, S, block):
+        m_begin = n0 if causal else 0
+        m_end = S if window is None else min(S, n0 + block - 1 + window)
+        per_head = -(-(m_end - m_begin) // block)
+        n_iter = G * per_head
+        for s in range(splits):
+            for it in range(n_iter * s // splits, n_iter * (s + 1) // splits):
+                m0 = m_begin + it % per_head * block
+                which[s, it // per_head, m0:m0 + block, n0:n0 + block] = 1.0
+    dk = torch.einsum("sgqk,bhgqk,bqhgd->sbkhd", which, ds, qf) / math.sqrt(hd)
+    dv = torch.einsum("sgqk,bhgqk,bqhgd->sbkhd", which, p, dof)
+    return dk, dv

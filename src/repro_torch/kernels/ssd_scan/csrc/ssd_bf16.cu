@@ -1,5 +1,7 @@
 // Mamba2 SSD forward for bf16 inputs on Hopper's tensor cores (sm_90a): the
-// whole of ops.ssd in three kernels.
+// whole of ops.ssd in three kernels; and ssd_bwd_dstate of the backward for
+// bf16 inputs, the same product as ssd_chunk_state's (described where it is
+// defined).
 //
 // Replaces, for bf16 x, B and C (the served path), the TPU kernel
 // `ssd_chunk_pallas` (body `_kernel`) of src/repro/kernels/ssd_scan/kernel.py
@@ -208,6 +210,67 @@ template <int P, int N> struct StateConfig {
   static int smem(int head_block) { return BASE + 2 * head_block * CUM_LD * 4; }
 };
 
+// rows 0 .. rows - 1 of a bf16 (rows, WIDTH) slice with row stride `stride`
+// into a swizzled tile at `dst` by cp.async, THREADS threads; rows at or past
+// `valid` are zeros.
+template <int WIDTH, int THREADS>
+__device__ __forceinline__ void stage_rows(uint32_t dst, const __nv_bfloat16* __restrict__ src,
+                                           size_t stride, int valid, int rows) {
+  constexpr int W = WIDTH / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < rows * W; i += THREADS) {
+    const int r = i / W, cc = i % W;
+    const bool ok = r < valid;
+    cp_async16(dst + swizzle<W>(r, cc), ok ? src + (size_t)r * stride + 8 * cc : src, ok);
+  }
+}
+
+// dst (P x N, f32, row-major) = (x w)^T . B over the `rows` staged rows (a
+// multiple of 16; rows past the chunk are zeros): x ([rows][P] bf16) and B
+// ([rows][N] bf16) swizzled in shared memory, w ([rows] f32) beside them.
+// Warp w owns the 16 rows p0 of P and NTW 8-column n-tiles from n0 of N;
+// x w is formed in f32 and split into hi + lo bf16 in registers.
+template <int P, int N>
+__device__ __forceinline__ void weighted_outer(float* __restrict__ dst, uint32_t xs,
+                                               const float* w_s, uint32_t bs, int rows) {
+  using Cfg = StateConfig<P, N>;
+  constexpr int NTW = Cfg::NTW, WX = P / 8, WB = N / 8;
+  static_assert(NTW % 2 == 0, "n-tiles in pairs");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, t = lane % 4;
+  const int p0 = 16 * (warp % Cfg::WM), n0 = 8 * NTW * (warp / Cfg::WM);
+  float acc[NTW][4];
+#pragma unroll
+  for (int n = 0; n < NTW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int k0 = 0; k0 < rows; k0 += 16) {
+    // The A fragment of rows p0.. of (x w)^T at keys k0..: x is stored
+    // [k][p], so ldmatrix.trans; regs 0, 1 hold keys k0 + 2t, + 1 and
+    // regs 2, 3 keys k0 + 8 + 2t, + 1.
+    uint32_t a[4], ahi[4], alo[4];
+    ldmatrix_x4_trans(a, xs + chunk_pairs<WX>(k0, p0 / 8, lane));
+    const float2 w01 = *reinterpret_cast<const float2*>(w_s + k0 + 2 * t);
+    const float2 w89 = *reinterpret_cast<const float2*>(w_s + k0 + 8 + 2 * t);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float2 w = r < 2 ? w01 : w89;
+      split_bf16(bf16_low(a[r]) * w.x, bf16_high(a[r]) * w.y, ahi[r], alo[r]);
+    }
+#pragma unroll
+    for (int np = 0; np < NTW / 2; ++np) {  // state n-tiles 2np and 2np + 1
+      uint32_t b[4];  // B is stored [k][n]: the B operand by .trans
+      ldmatrix_x4_trans(b, bs + row_pairs<WB>(k0, (n0 + 16 * np) / 8, lane));
+      mma_split(acc[2 * np], ahi, alo, b[0], b[1]);
+      mma_split(acc[2 * np + 1], ahi, alo, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NTW; ++n) {
+    const int col = n0 + 8 * n + 2 * t;
+    *reinterpret_cast<float2*>(dst + (size_t)(p0 + gq) * N + col) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(dst + (size_t)(p0 + gq + 8) * N + col) =
+        make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
 template <int P, int N>
 __global__ void __launch_bounds__(StateConfig<P, N>::THREADS, 2)
 ssd_chunk_state_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
@@ -215,9 +278,7 @@ ssd_chunk_state_kernel(const __nv_bfloat16* __restrict__ x, const float* __restr
                        float* __restrict__ chunk_in, float* __restrict__ cum, int H, int G,
                        int chunk, int head_block) {
   using Cfg = StateConfig<P, N>;
-  constexpr int THREADS = Cfg::THREADS, NTW = Cfg::NTW;
-  constexpr int WX = P / 8, WB = N / 8;  // 16-byte chunks per row of x and of B
-  static_assert(NTW % 2 == 0, "n-tiles in pairs");
+  constexpr int THREADS = Cfg::THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t bs = smem_addr(smem);       // B: [MAX_CHUNK][N], swizzled
   const uint32_t xs = bs + MAX_CHUNK * N * 2;  // x of one head: [MAX_CHUNK][P]
@@ -231,17 +292,9 @@ ssd_chunk_state_kernel(const __nv_bfloat16* __restrict__ x, const float* __restr
   const HeadBlock heads(g, hb, R, head_block);
   const size_t row0 = bc * chunk;  // the chunk's first row of (Bt * S)
   const int rows = (chunk + 15) & ~15;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane / 4, t = lane % 4;
-  const int p0 = 16 * (warp % Cfg::WM), n0 = 8 * NTW * (warp / Cfg::WM);
 
   // B of the chunk, once for all heads of the block; rows past it zeros.
-  const __nv_bfloat16* bsrc = Bm + row0 * G * N + (size_t)g * N;
-  for (int i = threadIdx.x; i < rows * WB; i += THREADS) {
-    const int r = i / WB, cc = i % WB;
-    const bool ok = r < chunk;
-    cp_async16(bs + swizzle<WB>(r, cc), ok ? bsrc + (size_t)r * G * N + 8 * cc : bsrc, ok);
-  }
+  stage_rows<N, THREADS>(bs, Bm + row0 * G * N + (size_t)g * N, (size_t)G * N, chunk, rows);
   cp_async_commit();
 
   // cum of the block's heads, a thread a head adding in row order, each
@@ -278,12 +331,7 @@ ssd_chunk_state_kernel(const __nv_bfloat16* __restrict__ x, const float* __restr
     __syncthreads();  // no warp still reads the previous head's x and w
     const float* dt_h = dt_s + (h - heads.h_begin) * CUM_LD;
     const float* cum_h = cum_s + (h - heads.h_begin) * CUM_LD;
-    const __nv_bfloat16* xsrc = x + row0 * H * P + (size_t)h * P;
-    for (int i = threadIdx.x; i < rows * WX; i += THREADS) {
-      const int r = i / WX, cc = i % WX;
-      const bool ok = r < chunk;
-      cp_async16(xs + swizzle<WX>(r, cc), ok ? xsrc + (size_t)r * H * P + 8 * cc : xsrc, ok);
-    }
+    stage_rows<P, THREADS>(xs, x + row0 * H * P + (size_t)h * P, (size_t)H * P, chunk, rows);
     cp_async_commit();
     const float cum_end = cum_h[chunk - 1];
     for (int k = threadIdx.x; k < rows; k += THREADS)
@@ -291,39 +339,62 @@ ssd_chunk_state_kernel(const __nv_bfloat16* __restrict__ x, const float* __restr
     cp_async_wait_all();
     __syncthreads();
 
-    float acc[NTW][4];
-#pragma unroll
-    for (int n = 0; n < NTW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    for (int k0 = 0; k0 < rows; k0 += 16) {
-      // The A fragment of rows p0.. of (x w)^T at keys k0..: x is stored
-      // [k][p], so ldmatrix.trans; regs 0, 1 hold keys k0 + 2t, + 1 and
-      // regs 2, 3 keys k0 + 8 + 2t, + 1.
-      uint32_t a[4], ahi[4], alo[4];
-      ldmatrix_x4_trans(a, xs + chunk_pairs<WX>(k0, p0 / 8, lane));
-      const float2 w01 = *reinterpret_cast<const float2*>(w_s + k0 + 2 * t);
-      const float2 w89 = *reinterpret_cast<const float2*>(w_s + k0 + 8 + 2 * t);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float2 w = r < 2 ? w01 : w89;
-        split_bf16(bf16_low(a[r]) * w.x, bf16_high(a[r]) * w.y, ahi[r], alo[r]);
-      }
-#pragma unroll
-      for (int np = 0; np < NTW / 2; ++np) {  // state n-tiles 2np and 2np + 1
-        uint32_t b[4];  // B is stored [k][n]: the B operand by .trans
-        ldmatrix_x4_trans(b, bs + row_pairs<WB>(k0, (n0 + 16 * np) / 8, lane));
-        mma_split(acc[2 * np], ahi, alo, b[0], b[1]);
-        mma_split(acc[2 * np + 1], ahi, alo, b[2], b[3]);
-      }
-    }
-    float* dst = chunk_in + (bc * H + h) * P * N;
-#pragma unroll
-    for (int n = 0; n < NTW; ++n) {
-      const int col = n0 + 8 * n + 2 * t;
-      *reinterpret_cast<float2*>(dst + (size_t)(p0 + gq) * N + col) =
-          make_float2(acc[n][0], acc[n][1]);
-      *reinterpret_cast<float2*>(dst + (size_t)(p0 + gq + 8) * N + col) =
-          make_float2(acc[n][2], acc[n][3]);
-    }
+    weighted_outer<P, N>(chunk_in + (bc * H + h) * P * N, xs, w_s, bs, rows);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ssd_bwd_dstate for bf16 dy and C, the training path's: the gradient of each
+// chunk's incoming state through its carry,
+//   dS_c = sum_q exp(cum_q) dy_q (outer) C_q = (dy w)^T . C,  w_q = exp(cum_q),
+// (P x N, f32), the product of ssd_chunk_state with dy for x, C for B and
+// exp(cum) for its weight (the f32 inputs' kernel is ssd_bwd.cu's).  It has
+// no TPU counterpart: the JAX package differentiates the jnp path of
+// ssd_chunk_pallas.  At mamba2-780m's training shape it reads dy (50 MB), C
+// and cum and writes dS (50 MB): bound by bytes, 0.031 ms at 3.35 TB/s,
+// against 6.4 GFLOP (12.9 with hi + lo).  C depends on the group alone, so a
+// block per (batch * chunk, group, block of heads) stages the chunk's C once
+// for its heads, and cum of its heads once (rows of head_block contiguous
+// values); each head's dy comes by cp.async, w = exp(cum) (expf, as the
+// plain version's exp) scales it in f32 and hi + lo bf16 carry the product
+// into the f32 accumulators; each head's P x N result is written once.
+
+template <int P, int N>
+__global__ void __launch_bounds__(StateConfig<P, N>::THREADS, 2)
+ssd_bwd_dstate_tc_kernel(const __nv_bfloat16* __restrict__ dy, const float* __restrict__ cum,
+                         const __nv_bfloat16* __restrict__ C, float* __restrict__ dS, int H,
+                         int G, int chunk, int head_block) {
+  using Cfg = StateConfig<P, N>;
+  constexpr int THREADS = Cfg::THREADS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t cs = smem_addr(smem);         // C: [MAX_CHUNK][N], swizzled
+  const uint32_t ys = cs + MAX_CHUNK * N * 2;  // dy of one head: [MAX_CHUNK][P]
+  float* const w_s = reinterpret_cast<float*>(smem + MAX_CHUNK * (N + P) * 2);
+  float* const cum_s = reinterpret_cast<float*>(smem + Cfg::BASE);  // [head_block][CUM_LD]
+
+  const int R = H / G, nhb = (R + head_block - 1) / head_block;
+  const int hb = blockIdx.x % nhb, g = blockIdx.x / nhb % G;
+  const size_t bc = blockIdx.x / nhb / G;  // b * nc + c
+  const HeadBlock heads(g, hb, R, head_block);
+  const size_t row0 = bc * chunk;  // the chunk's first row of (Bt * S)
+  const int rows = (chunk + 15) & ~15;
+
+  stage_rows<N, THREADS>(cs, C + row0 * G * N + (size_t)g * N, (size_t)G * N, chunk, rows);
+  cp_async_commit();
+  const int nh = heads.h_end - heads.h_begin;
+  const size_t at0 = row0 * H + heads.h_begin;  // (row 0 of the chunk, first head)
+  for (int i = threadIdx.x; i < nh * chunk; i += THREADS)
+    cum_s[(i % nh) * CUM_LD + i / nh] = cum[at0 + (size_t)(i / nh) * H + i % nh];
+
+  for (int h = heads.h_begin; h < heads.h_end; ++h) {
+    __syncthreads();  // no warp still reads the previous head's dy and w; cum_s is in place
+    stage_rows<P, THREADS>(ys, dy + row0 * H * P + (size_t)h * P, (size_t)H * P, chunk, rows);
+    cp_async_commit();
+    const float* cum_h = cum_s + (h - heads.h_begin) * CUM_LD;
+    for (int q = threadIdx.x; q < rows; q += THREADS) w_s[q] = q < chunk ? expf(cum_h[q]) : 0.f;
+    cp_async_wait_all();
+    __syncthreads();
+    weighted_outer<P, N>(dS + (bc * H + h) * P * N, ys, w_s, cs, rows);
   }
 }
 
@@ -691,6 +762,25 @@ int launch_state(const void* x, const void* dt, const void* A, const void* B, vo
 }
 
 template <int P, int N>
+int launch_dstate(const void* dy, const void* cum, const void* C, void* dS, int Bt, int S, int H,
+                  int G, int chunk, int head_block, cudaStream_t stream) {
+  using Cfg = StateConfig<P, N>;
+  auto kernel = ssd_bwd_dstate_tc_kernel<P, N>;
+  if (head_block > MAX_STATE_HEADS) return (int)cudaErrorInvalidValue;
+  const int smem = Cfg::smem(head_block);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks =
+      (long long)Bt * (S / chunk) * G * ((H / G + head_block - 1) / head_block);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, Cfg::THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(dy), static_cast<const float*>(cum),
+      static_cast<const __nv_bfloat16*>(C), static_cast<float*>(dS), H, G, chunk, head_block);
+  return (int)cudaGetLastError();
+}
+
+template <int P, int N>
 int launch_scan(const void* x, const void* dt, const void* cum, const void* B, const void* C,
                 const void* D, const void* h_ins, void* y, int Bt, int S, int H, int G,
                 int chunk, int head_block, cudaStream_t stream) {
@@ -713,9 +803,10 @@ int launch_scan(const void* x, const void* dt, const void* cum, const void* B, c
 
 template <int P, int N>
 int attributes_pn(int which, int head_block, cudaFuncAttributes* attr, int* dynamic_smem) {
-  if (which == 0) {
+  if (which == 0 || which == 2) {
     *dynamic_smem = StateConfig<P, N>::smem(head_block);
-    return (int)cudaFuncGetAttributes(attr, ssd_chunk_state_kernel<P, N>);
+    return which == 0 ? (int)cudaFuncGetAttributes(attr, ssd_chunk_state_kernel<P, N>)
+                      : (int)cudaFuncGetAttributes(attr, ssd_bwd_dstate_tc_kernel<P, N>);
   }
   *dynamic_smem = ScanConfig<P, N>::SMEM;
   return (int)cudaFuncGetAttributes(attr, ssd_chunk_scan_kernel<P, N>);
@@ -777,14 +868,30 @@ extern "C" int ssd_chunk_scan(const void* x, const void* dt, const void* cum, co
   return (int)cudaErrorInvalidValue;
 }
 
+// dS (Bt, S / chunk, H, P, N) f32 from dy (Bt, S, H, P) bf16, cum (Bt, S, H)
+// f32 and C (Bt, S, G, N) bf16; head_block heads a block (at most 16).
+extern "C" int ssd_bwd_dstate_bf16(const void* dy, const void* cum, const void* C, void* dS,
+                                   int Bt, int S, int H, int G, int P, int N, int chunk,
+                                   int head_block, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!valid(Bt, S, H, G, chunk, head_block)) return (int)cudaErrorInvalidValue;
+#define SSD_DSTATE(p, n)                                                                       \
+  if (P == p && N == n)                                                                        \
+    return launch_dstate<p, n>(dy, cum, C, dS, Bt, S, H, G, chunk, head_block, st);
+  SSD_DSTATE(16, 16) SSD_DSTATE(16, 32) SSD_DSTATE(32, 16) SSD_DSTATE(64, 128)
+#undef SSD_DSTATE
+  return (int)cudaErrorInvalidValue;
+}
+
 // Registers, local bytes (spills and stack) and shared bytes (static plus
-// dynamic) of ssd_chunk_state (which = 0) or ssd_chunk_scan (which = 1) at
-// (P, N) and head_block; returns a CUDA error code (0 on success).
+// dynamic) of ssd_chunk_state (which = 0), ssd_chunk_scan (which = 1) or
+// ssd_bwd_dstate_tc (which = 2) at (P, N) and head_block; returns a CUDA
+// error code (0 on success).
 extern "C" int ssd_bf16_attributes(int which, int P, int N, int head_block, int* regs,
                                    int* local_bytes, int* smem_bytes) {
   cudaFuncAttributes attr;
   int dynamic_smem = 0, err = (int)cudaErrorInvalidValue;
-  if (which != 0 && which != 1) return err;
+  if (which < 0 || which > 2) return err;
   if (P == 16 && N == 16) err = attributes_pn<16, 16>(which, head_block, &attr, &dynamic_smem);
   if (P == 16 && N == 32) err = attributes_pn<16, 32>(which, head_block, &attr, &dynamic_smem);
   if (P == 32 && N == 16) err = attributes_pn<32, 16>(which, head_block, &attr, &dynamic_smem);

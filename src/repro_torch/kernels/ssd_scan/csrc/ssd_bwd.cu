@@ -41,6 +41,11 @@
 // columns tx + 16 j), rows of a chunk in tiles of KT = 32; the tensor cores
 // (the hi + lo bf16 operands of ssd_bf16.cu) are later work.
 //
+// The training path's bf16 dS runs the tensor-core ssd_bwd_dstate of
+// ssd_bf16.cu; this file's, in both types, is the f32 inputs' kernel and the
+// one the CPU emulation (tests/test_torch_cuda_emu.py) builds, so it carries
+// no PTX.
+//
 // Layouts are those of the forward: x, dy, dx (Bt, S, H, P); dt, cum, ddt
 // (Bt, S, H); B, C (Bt, S, G, N); h_ins, dS, dchunk_in (Bt, nc, H, P, N);
 // h0, dh0, dh_final (Bt, H, P, N).  Any chunk from 1 to 256 (the last row

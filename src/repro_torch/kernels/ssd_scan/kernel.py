@@ -8,8 +8,10 @@
   tensor cores, y written once; ``ops.ssd`` takes them for bf16 inputs.
 - ``ssd_bwd_dstate``, ``ssd_bwd_state_pass`` and ``ssd_bwd_chunk``
   (``csrc/ssd_bwd.cu``): the gradient of the whole SSD in either input type,
-  on the CUDA cores in f32; ``ops.SSDScan`` runs them.  They have no TPU
-  counterpart: the JAX package differentiates its jnp path.
+  on the CUDA cores in f32, but ``ssd_bwd_dstate`` in bf16, which runs the
+  tensor-core kernel of ``csrc/ssd_bf16.cu``; ``ops.SSDScan`` runs them.
+  They have no TPU counterpart: the JAX package differentiates its jnp
+  path.
 
 On a CPU tensor each wrapper computes its kernel's plain version (``ref``);
 on a CUDA tensor it checks its inputs, launches the kernel and counts the
@@ -36,7 +38,8 @@ MAX_CHUNK = 256
 # Heads a block of ssd_chunk_state and of ssd_chunk_scan walks (fewer at a
 # group's end): B and C.B^T are staged and formed once for them.  The fastest
 # of 1..16 and of 3..24 at mamba2-780m's serving shape on the H100
-# (tools/ssd_tune.py, PERF.md).
+# (tools/ssd_tune.py, PERF.md).  The bf16 ssd_bwd_dstate, the same product
+# with dy for x and C for B, takes STATE_HEAD_BLOCK too.
 STATE_HEAD_BLOCK = 6
 SCAN_HEAD_BLOCK = 12
 BWD_LIBRARY = "ssd_bwd"
@@ -250,19 +253,32 @@ def ssd_bwd_dstate(dy: torch.Tensor, cum: torch.Tensor, C: torch.Tensor, *,
     """dy: (Bt, S, H, P); cum: (Bt, S, H) f32; C: (Bt, S, G, N) in dy's type.
 
     Returns dS (Bt, S/chunk, H, P, N) f32, each chunk's gradient of its
-    incoming state through the carry (``chunk_dstate_ref``)."""
+    incoming state through the carry (``chunk_dstate_ref``): the tensor-core
+    kernel for bf16 (a block per (batch * chunk, group, STATE_HEAD_BLOCK
+    heads)), the CUDA-core kernel for f32 (a block per (batch * chunk,
+    head))."""
     if dy.device.type == "cpu":
         return chunk_dstate_ref(dy, cum, C, chunk=chunk)
     _check(dy, cum, cum, C, C, chunk)
     Bt, S, H, P = dy.shape
-    if Bt * (S // chunk) * H > _MAX_GRID_X:
+    G, N = C.shape[2], C.shape[3]
+    bf16 = dy.dtype == torch.bfloat16
+    if bf16:
+        _check_grid(dy, C, chunk, STATE_HEAD_BLOCK)
+    elif Bt * (S // chunk) * H > _MAX_GRID_X:
         raise ValueError(f"{Bt * (S // chunk) * H} blocks exceed the kernel's grid")
-    _check_device(dy, cum, C, aligned=False)
-    dS = torch.empty(Bt, S // chunk, H, P, C.shape[3], dtype=torch.float32,
+    _check_device(dy, cum, C, aligned=bf16)
+    dS = torch.empty(Bt, S // chunk, H, P, N, dtype=torch.float32,
                      device=dy.device)
-    _launch("ssd_bwd_dstate", _function(BWD_LIBRARY, "ssd_bwd_dstate", 4, 8),
-            dy.data_ptr(), cum.data_ptr(), C.data_ptr(), dS.data_ptr(), Bt, S, H,
-            C.shape[2], P, C.shape[3], chunk, _DTYPES[dy.dtype], device=dy.device)
+    if bf16:
+        _launch("ssd_bwd_dstate",
+                _function(BF16_LIBRARY, "ssd_bwd_dstate_bf16", 4, 8),
+                dy.data_ptr(), cum.data_ptr(), C.data_ptr(), dS.data_ptr(), Bt,
+                S, H, G, P, N, chunk, STATE_HEAD_BLOCK, device=dy.device)
+    else:
+        _launch("ssd_bwd_dstate", _function(BWD_LIBRARY, "ssd_bwd_dstate", 4, 8),
+                dy.data_ptr(), cum.data_ptr(), C.data_ptr(), dS.data_ptr(), Bt,
+                S, H, G, P, N, chunk, _DTYPES[dy.dtype], device=dy.device)
     return dS
 
 
@@ -361,7 +377,10 @@ def ssd_bwd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def bwd_attributes(kernel: str, P: int, N: int, dtype: torch.dtype) -> dict:
     """Registers, local bytes (spills and stack) and shared bytes of a
     compiled SSD backward kernel at (P, N) and input type, by
-    ``cudaFuncGetAttributes``."""
+    ``cudaFuncGetAttributes`` (for the bf16 ``ssd_bwd_dstate``, the
+    tensor-core kernel at STATE_HEAD_BLOCK)."""
+    if kernel == "ssd_bwd_dstate" and dtype == torch.bfloat16:
+        return attributes(kernel, P, N)
     fn = getattr(load(BWD_LIBRARY), "ssd_bwd_attributes")
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
     fn.restype = ctypes.c_int
@@ -376,9 +395,10 @@ def bwd_attributes(kernel: str, P: int, N: int, dtype: torch.dtype) -> dict:
 
 def attributes(kernel: str, P: int, N: int) -> dict:
     """Registers, local bytes (spills and stack) and shared bytes of the
-    compiled ``ssd_chunk_state`` or ``ssd_chunk_scan`` at (P, N) and the
+    compiled ``ssd_chunk_state``, ``ssd_chunk_scan`` or bf16
+    ``ssd_bwd_dstate`` (all in ``csrc/ssd_bf16.cu``) at (P, N) and the
     default head block, by ``cudaFuncGetAttributes``."""
-    which = {"ssd_chunk_state": 0, "ssd_chunk_scan": 1}[kernel]
+    which = {"ssd_chunk_state": 0, "ssd_chunk_scan": 1, "ssd_bwd_dstate": 2}[kernel]
     fn = getattr(load(BF16_LIBRARY), "ssd_bf16_attributes")
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
     fn.restype = ctypes.c_int

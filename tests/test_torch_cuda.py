@@ -37,7 +37,7 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.flash_attention.kernel import (BWD_KERNELS, HEAD_DIMS,
                                                         attributes,
                                                         bwd_attributes,
-                                                        bwd_buffers,
+                                                        bwd_buffers, bwd_splits,
                                                         flash_attention_bwd,
                                                         flash_attention_fwd,
                                                         launch_bwd)
@@ -462,6 +462,52 @@ def test_flash_backward_kernels_use_no_local_memory(cuda_device, name, hd, dtype
     assert attrs["local_bytes"] == 0, attrs
 
 
+# recurrentgemma-2b's attention (H 10, KH 1, head_dim 256, window 2048) at
+# the training batch 1 and at 4, a ragged S, a window that bites and KH > 1.
+WIDE_SHAPES = [  # (B, S, H, KH, window)
+    (1, 2048, 10, 1, 2048),
+    (4, 2048, 10, 1, 2048),
+    (1, 2049, 10, 1, 2048),
+    (1, 1000, 10, 1, 300),
+    (2, 200, 4, 2, None),
+]
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3])
+@pytest.mark.parametrize("B,S,H,KH,window", WIDE_SHAPES)
+def test_flash_backward_hd256_splits_on_card(cuda_device, B, S, H, KH, window,
+                                             splits):
+    """The bf16 head_dim-256 backward (the eight-warp tensor-core kernels)
+    against attention_bwd_ref, with dK/dV cut into the parts bwd_splits
+    picks (None), unsplit, and 3 parts."""
+    dtype = torch.bfloat16
+    q, k, v, do = _qkv_do(cuda_device, dtype, B, S, H, KH, 256, seed=S + B)
+    o, lse = flash_attention_fwd(q, k, v, window=window, return_lse=True)
+    bufs = bwd_buffers(q, k, v, o, lse, do, window=window, splits=splits)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert bufs["splits"] == (splits or bwd_splits(B, S, H, KH, 256, dtype, sms))
+    for name in BWD_KERNELS:
+        launch_bwd(name, bufs, causal=True, window=window)
+    torch.cuda.synchronize()
+    ref = attention_bwd_ref(q, k, v, o, lse, do, window=window)
+    for got, r in zip((bufs["dq"], bufs["dk"], bufs["dv"]), ref):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(_np(got), _np(r), **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("name,shared", [
+    # 6 tiles of 64 x 256 bf16, the P and dS tiles (64 x 64 bf16), L and D
+    # in two stages
+    ("flash_attn_bwd_dkdv", 6 * 64 * 256 * 2 + 2 * 64 * 64 * 2 + 2 * 2 * 64 * 4),
+    ("flash_attn_bwd_dq", 6 * 64 * 256 * 2 + 64 * 64 * 2)])
+def test_flash_backward_hd256_reports_the_tensor_core_kernels(cuda_device, name,
+                                                              shared):
+    """bf16 at head_dim 256 launches the eight-warp tensor-core kernels:
+    their shared memory, no local memory."""
+    attrs = bwd_attributes(name, 256, torch.bfloat16)
+    assert attrs["shared_bytes"] == shared and attrs["local_bytes"] == 0, attrs
+
+
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "smollm-135m"])
 def test_reduced_train_step_on_card_matches_cpu(cuda_device, arch):
     """One train step of a reduced config on the card: each of its 2 layers
@@ -575,6 +621,32 @@ def test_ssd_bwd_kernels_vs_plain_on_card(cuda_device, Bt, S, H, P, G, N, chunk,
                                    end, chunk=chunk, dA_scale=True)
     for what, g, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, ref):
         _ssd_bwd_close(what, g, r, dtype, dA_scale if what == "dA" else None)
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk", [
+    (1, 2048, 48, 64, 1, 128, 256),   # mamba2-780m's training shape, batch 1
+    (4, 2048, 48, 64, 1, 128, 256),   # ... and batch 4
+    (2, 240, 12, 64, 2, 128, 24),     # two groups, a chunk not a multiple of 16
+])
+def test_ssd_bwd_dstate_tensor_cores_on_card(cuda_device, Bt, S, H, P, G, N,
+                                             chunk):
+    """bf16 ssd_bwd_dstate (the tensor-core kernel, one launch) against
+    chunk_dstate_ref, with the model's A, within 2e-2 of the largest
+    magnitude; the kernel it reports is csrc/ssd_bf16.cu's, no local
+    memory."""
+    x, dt, A, B, C, D = _ssd_inputs(cuda_device, torch.bfloat16, Bt, S, H, P, G,
+                                    N, True, seed=S + Bt)
+    dy = torch.randn(x.shape, device=cuda_device).to(torch.bfloat16)
+    cum = chunk_cumsum(dt, A, chunk)
+    before = LAUNCHES["ssd_bwd_dstate"]
+    got = ssd_bwd_dstate(dy, cum, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_bwd_dstate"] == before + 1
+    _ssd_bwd_close("dS", got, chunk_dstate_ref(dy, cum, C, chunk=chunk),
+                   torch.bfloat16)
+    attrs = ssd_kernel.bwd_attributes("ssd_bwd_dstate", P, N, torch.bfloat16)
+    assert attrs == ssd_kernel.attributes("ssd_bwd_dstate", P, N)
+    assert attrs["local_bytes"] == 0, attrs
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

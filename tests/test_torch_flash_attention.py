@@ -11,7 +11,10 @@ Gradients: the port's written-out backward (``attention_bwd_ref``), autograd
 through its plain path, and ``FlashAttention`` (the wrappers' plain
 versions on the CPU) against ``jax.grad`` of the reference's
 ``attention_ref`` and ``attention_chunked``, 1e-4 in f32 (a gradient sums
-up to S or G·S terms, in another order) and bf16 2e-2.
+up to S or G·S terms, in another order) and bf16 2e-2.  The parts into
+which the bf16 head_dim-256 dK/dV kernel splits its work
+(``dkdv_partials_ref``) sum to the whole plain gradient (1e-5) and to
+``jax.grad``'s (1e-4), in f32.
 """
 import functools
 
@@ -26,11 +29,14 @@ from repro.kernels.flash_attention.ref import attention_chunked as jax_chunked
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.flash_attention.kernel import (BWD_KERNELS,
+                                                        MAX_BWD_SPLITS,
+                                                        bwd_splits,
                                                         flash_attention_bwd,
                                                         flash_attention_fwd)
 from repro_torch.kernels.flash_attention.ops import FlashAttention, flash_attention
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
-                                                     attention_chunked, lse_ref)
+                                                     attention_chunked,
+                                                     dkdv_partials_ref, lse_ref)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -280,6 +286,60 @@ def test_gradients_vs_jax_grad_of_attention_chunked(window):
                                 torch.from_numpy(do_np), **mask)
     for g, r in zip(written, ref):
         np.testing.assert_allclose(_np(g), _np(r), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,H,KH,hd,dtype,sms,parts", [
+    (1, 2048, 10, 1, 256, torch.bfloat16, 132, 8),   # recurrentgemma-2b, batch 1
+    (4, 2048, 10, 1, 256, torch.bfloat16, 132, 2),   # batch 4
+    (2, 2048, 10, 1, 256, torch.bfloat16, 132, 4),
+    (1, 64, 10, 1, 256, torch.bfloat16, 132, 8),     # one query tile
+    (1, 40, 2, 1, 256, torch.bfloat16, 132, 2),      # ... with a walk of 2 pairs
+    (1, 300, 4, 2, 256, torch.bfloat16, 132, 8),     # more parts than query tiles
+    (132, 2048, 10, 1, 256, torch.bfloat16, 132, 1),  # B * KH >= SMs
+    (66, 64, 4, 2, 256, torch.bfloat16, 132, 2),     # B * KH = SMs, one tile a head
+    (1, 2048, 10, 1, 256, torch.float32, 132, 1),    # f32: the CUDA-core kernel
+    (1, 2048, 16, 8, 64, torch.bfloat16, 132, 1),    # hd 64: the four-warp kernel
+])
+def test_bwd_splits_fills_the_card(B, S, H, KH, hd, dtype, sms, parts):
+    """Two blocks an SM, the nearest whole number of parts, at most
+    MAX_BWD_SPLITS and at most the longest key tile's walk; 1 where the
+    kernel does not split."""
+    got = bwd_splits(B, S, H, KH, hd, dtype, sms)
+    assert got == parts and 1 <= got <= MAX_BWD_SPLITS
+
+
+SPLIT_CASES = [  # (B, S, H, KH, window, causal, splits) at head_dim 256
+    (1, 130, 4, 1, None, True, 3),
+    (1, 130, 4, 1, None, True, 8),      # more parts than a key tile's pairs
+    (2, 100, 4, 2, 40, True, 2),        # KH > 1, a window inside a tile
+    (1, 129, 2, 1, 1, True, 4),         # window 1: one pair a key tile
+    (1, 70, 2, 1, None, False, 5),      # non-causal, ragged S
+]
+
+
+@pytest.mark.parametrize("B,S,H,KH,window,causal,splits", SPLIT_CASES)
+def test_split_partials_sum_to_the_whole_gradient(B, S, H, KH, window, causal,
+                                                  splits):
+    """The parts the split dK/dV kernel writes, summed over the parts, equal
+    the whole plain gradient and the reference's, ``jax.grad`` of
+    sum(``attention_ref`` o dO) (its vjp with dO), in f32."""
+    hd = 256
+    (jq, jk, jv), (q, k, v) = _inputs(S + splits, B, S, H, KH, hd, "float32")
+    do_np = np.random.default_rng(S + 1).normal(size=(B, S, H, hd)).astype(np.float32)
+    mask = dict(causal=causal, window=window)
+    o = flash_attention(q, k, v, **mask)
+    L = lse_ref(q, k, **mask)
+    do = torch.from_numpy(do_np)
+    dk_part, dv_part = dkdv_partials_ref(q, k, v, o, L, do, splits=splits, **mask)
+    assert dk_part.shape == dv_part.shape == (splits, B, S, KH, hd)
+    _, dk, dv = attention_bwd_ref(q, k, v, o, L, do, **mask)
+    _, jdk, jdv = _jax_grads(jax_ref, jq, jk, jv, jnp.asarray(do_np), **mask)
+    for what, part, whole, jax_whole in (("dk", dk_part, dk, jdk),
+                                         ("dv", dv_part, dv, jdv)):
+        np.testing.assert_allclose(_np(part.sum(0)), _np(whole), rtol=1e-5,
+                                   atol=1e-5, err_msg=what)
+        np.testing.assert_allclose(_np(part.sum(0)), _np(jax_whole), rtol=1e-4,
+                                   atol=1e-4, err_msg=what)
 
 
 @pytest.mark.parametrize("window", [None, 3])

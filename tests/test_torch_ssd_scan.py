@@ -39,9 +39,9 @@ from repro_torch.kernels.ssd_scan.kernel import (ssd_bwd_chunk, ssd_bwd_dstate,
                                                  ssd_chunk_scan, ssd_chunk_state,
                                                  ssd_state_pass)
 from repro_torch.kernels.ssd_scan.ops import SSDScan, ssd
-from repro_torch.kernels.ssd_scan.ref import (chunk_cumsum, chunk_scan_ref,
-                                              chunk_state_ref, pass_states,
-                                              ssd_bwd_ref, ssd_chunk_ref,
+from repro_torch.kernels.ssd_scan.ref import (chunk_cumsum, chunk_dstate_ref,
+                                              chunk_scan_ref, chunk_state_ref,
+                                              pass_states, ssd_bwd_ref, ssd_chunk_ref,
                                               ssd_chunked_ref, ssd_decode_step,
                                               ssd_ref)
 
@@ -427,6 +427,47 @@ def test_the_split_is_needed_at_the_serving_widths():
 
 
 BWD_RTOL = 1e-4
+
+
+def _emulate_dstate(dy, cum, C, chunk, split=True):
+    """The bf16 ``ssd_bwd_dstate`` kernel's arithmetic (``csrc/ssd_bf16.cu``)
+    in PyTorch: dy exp(cum) formed in f32 and fed to the tensor cores as
+    hi + lo bf16 (or hi alone with ``split=False``), times bf16 C, exact
+    products, f32 sums."""
+    Bt, S, H, P = dy.shape
+    G, N = C.shape[2:]
+    nc = S // chunk
+    dyw = dy.float() * torch.exp(cum)[..., None]
+    Cf = C.float().reshape(Bt, nc, chunk, G, N)
+    return sum(torch.einsum("bcqgrp,bcqgn->bcgrpn",
+                            v.reshape(Bt, nc, chunk, G, H // G, P), Cf)
+               for v in _parts(dyw, split)).reshape(Bt, nc, H, P, N)
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk", [
+    (1, 256, 4, 64, 1, 128, 256),   # mamba2-780m's P, N and chunk
+    (2, 128, 4, 16, 2, 32, 32),
+    (1, 96, 6, 32, 3, 16, 24),      # a chunk that is not a multiple of 16
+])
+def test_emulated_dstate_split_meets_the_bwd_gates(Bt, S, H, P, G, N, chunk):
+    """The bf16 dS kernel's hi + lo split of dy exp(cum), times bf16 C, with
+    the model's A, against ``chunk_dstate_ref``: within the SSD backward's
+    bf16 gate (2e-2 of the largest magnitude), and within its f32 one
+    (1e-4), which dy exp(cum) rounded to bf16 once misses."""
+    rng = np.random.default_rng(S + H)
+    A = torch.from_numpy(-np.linspace(1.0, 16.0, H).astype(np.float32))
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, size=(Bt, S, H)).astype(np.float32))
+    cum = chunk_cumsum(dt, A, chunk)
+    dy, C = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+             .to(torch.bfloat16) for shape in ((Bt, S, H, P), (Bt, S, G, N)))
+    ref = chunk_dstate_ref(dy, cum, C, chunk=chunk)
+    scale = ref.abs().max().item()
+    err = (_emulate_dstate(dy, cum, C, chunk) - ref).abs().max().item()
+    assert err <= 2e-2 * scale and err <= BWD_RTOL * scale
+    once = (_emulate_dstate(dy, cum, C, chunk, split=False) - ref).abs().max().item()
+    assert BWD_RTOL * scale < once <= 2e-2 * scale
+
+
 GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
 BWD_CASES = [  # (Bt, S, H, P, G, N, chunk, model A)
     (1, 64, 2, 16, 1, 32, 16, False),
