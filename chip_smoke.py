@@ -46,9 +46,11 @@ Phases; any that fails ends the run with a non-zero exit:
        and recurrentgemma-2b's training shape, with and without dh_final,
        f32 and bf16 (1e-5; bf16 da and du one bf16 step, 8e-3);
      - the SSD backward's kernels (ssd_bwd_dstate, ssd_bwd_state_pass,
-       ssd_bwd_chunk) each against its plain version from the same inputs
-       over the bf16 path's grid and mamba2-780m's training shape, with and
-       without h0 and dh_final, f32 and bf16 (1e-4 and 2e-2, see SSD_BWD_TOL);
+       ssd_bwd_chunk: bf16 the tensor-core kernel of csrc/ssd_bwd_tc.cu,
+       counted as ssd_bwd_chunk_tc, f32 ssd_bwd.cu's) each against its plain
+       version from the same inputs over the bf16 path's grid and
+       mamba2-780m's training shape, with and without h0 and dh_final, f32
+       and bf16 (1e-4 and 2e-2, see SSD_BWD_TOL), with their launches;
      - ``SSDScan`` and ``RGLRUScan`` through ``ops.ssd`` and
        ``ops.rglru_scan`` with grad on, against autograd through the plain
        versions, with their launches (the SSD also at a ragged length, through
@@ -67,8 +69,10 @@ Phases; any that fails ends the run with a non-zero exit:
      with the dK/dV kernel's parts; rglru_scan_bwd and the SSD backward's
      kernels at their training shapes, each beside its plain version and its
      bound (ssd_bwd_dstate also beside ``torch.einsum`` of the prescaled dy
-     and C, the one PyTorch call that computes its product), and the whole
-     SSD backward;
+     and C, the one PyTorch call that computes its product; the bf16
+     ssd_bwd_chunk_tc beside the CUDA-core kernel it replaced on the same
+     bf16 inputs, and that kernel on f32 inputs, its live path), and the
+     whole SSD backward;
   4. the main paths, each with the launch counts set to 0 just before it and
      read just after: ``repro_torch.launch.serve`` serves 8 requests of
      full-width qwen3-0.6b, then of full-width mamba2-780m, then of
@@ -293,13 +297,15 @@ TRAIN_CELLS = {"qwen3-0.6b": (4, 4), "mamba2-780m": (4, 3),
 # mamba2-780m: 48 SSM layers, each one superblock.  recurrentgemma-2b: 8
 # superblocks of (RG-LRU, RG-LRU, attention) and 2 RG-LRU tail layers
 # outside any superblock, so 16 x 2 + 2 = 34 scans, 18 scan backwards, 16
-# flash forwards, 8 of each flash backward.
+# flash forwards, 8 of each flash backward.  mamba2-780m's bf16 backward
+# runs the tensor-core ssd_bwd_chunk (counted as ssd_bwd_chunk_tc); its
+# f32-compute gate the CUDA-core one (ssd_bwd_chunk, see grad_parity).
 TRAIN_PATHS = {
     "qwen3-0.6b": {"flash_attn_fwd": 56, "flash_attn_bwd_pre": 28,
                    "flash_attn_bwd_dkdv": 28, "flash_attn_bwd_dq": 28},
     "mamba2-780m": {"ssd_chunk_state": 96, "ssd_state_pass": 96,
                     "ssd_chunk_scan": 96, "ssd_bwd_dstate": 48,
-                    "ssd_bwd_state_pass": 48, "ssd_bwd_chunk": 48},
+                    "ssd_bwd_state_pass": 48, "ssd_bwd_chunk_tc": 48},
     "recurrentgemma-2b": {"rglru_scan": 34, "rglru_scan_bwd": 18,
                           "flash_attn_fwd": 16, "flash_attn_bwd_pre": 8,
                           "flash_attn_bwd_dkdv": 8, "flash_attn_bwd_dq": 8},
@@ -347,6 +353,7 @@ SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SSD_BWD_SCALED = ("dS", "end", "dx", "ddt", "dA", "dB", "dC", "dD")
 SSD_BWD_GRID = SSD_BF16_GRID + [SSD_SERVE + (True,)]  # the last: training
 SSD_BWD_KERNELS = ("ssd_bwd_dstate", "ssd_bwd_state_pass", "ssd_bwd_chunk")
+SSD_BWD_TC = "ssd_bwd_chunk_tc"  # the bf16 ssd_bwd_chunk's launches
 
 # One training step's loss and gradients, kernel path against the plain
 # path (impl="reference": autograd through attention_chunked), in f32
@@ -393,8 +400,9 @@ def spill_gate(logs: dict) -> None:
     """Fails the run unless every bf16 (tensor-core) instantiation reports 0
     bytes of spill stores and loads in ptxas's report: the flash kernel's,
     one per head_dim its wrapper takes, and the SSD path's, ssd_chunk_state,
-    ssd_chunk_scan and the bf16 ssd_bwd_dstate at each (P, N) their wrappers
-    take and ssd_state_pass; and the same of the f32 flash kernel, of the
+    ssd_chunk_scan and the bf16 ssd_bwd_dstate and ssd_bwd_chunk at each
+    (P, N) their wrappers take and ssd_state_pass; and the same of the f32
+    flash kernel, of the
     flash backward's three kernels, one per head_dim and type (bf16 at
     head_dim 256: the eight-warp kernels), of the SSD backward's three, one
     per (P, N) and type, and of the RG-LRU backward, one per type."""
@@ -417,6 +425,7 @@ def spill_gate(logs: dict) -> None:
               ("ssd_bf16", "ssd_chunk_scan_kernel", len(PN_PAIRS)),
               ("ssd_bf16", "ssd_state_pass_kernel", 1),
               ("ssd_bf16", "ssd_bwd_dstate_tc_kernel", len(PN_PAIRS)),
+              ("ssd_bwd_tc", "ssd_bwd_chunk_tc_kernel", len(PN_PAIRS)),
               # the backwards of the recurrent blocks, both input types each
               ("ssd_bwd", "ssd_bwd_dstate_kernel", 2 * len(PN_PAIRS)),
               ("ssd_bwd", "ssd_bwd_chunk_kernel", 2 * len(PN_PAIRS)),
@@ -1039,11 +1048,14 @@ def ssd_bwd_vs_plain(device) -> dict:
     ssd_bwd_state_pass against ``state_pass_bwd_ref`` from the kernel's dS,
     ssd_bwd_chunk against ``chunk_bwd_ref`` from the kernel's dchunk_in and
     chunk-end term), over the bf16 path's grid and the training shape (the
-    model's A), with and without h0 and dh_final, f32 and bf16 x, B, C, dy.
-    Returns each kernel's max abs error at the training shape in bf16 (the
-    main path's case)."""
+    model's A), with and without h0 and dh_final, f32 and bf16 x, B, C, dy,
+    each kernel launched once (bf16: the tensor-core ssd_bwd_chunk, counted
+    as ssd_bwd_chunk_tc).  Returns each kernel's max abs error at the
+    training shape, no h0 or dh_final: bf16 (the main path's case), and
+    ssd_bwd_chunk's in f32 (the f32-compute gate's)."""
     import torch
-    from repro_torch.kernels.ssd_scan.kernel import (ssd_bwd_chunk,
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.ssd_scan.kernel import (bwd_kernels, ssd_bwd_chunk,
                                                      ssd_bwd_dstate,
                                                      ssd_bwd_state_pass)
     from repro_torch.kernels.ssd_scan.ref import (chunk_bwd_ref,
@@ -1060,6 +1072,7 @@ def ssd_bwd_vs_plain(device) -> dict:
                     with_dhf)
                 chunk = shape[6]
                 got, ref = {}, {}
+                LAUNCHES.clear()
                 got["dS"] = ssd_bwd_dstate(dy, cum, C, chunk=chunk)
                 got["dchunk_in"], got["dh0"], got["end"] = ssd_bwd_state_pass(
                     got["dS"], cum, h_ins, dhf, chunk=chunk)
@@ -1067,6 +1080,9 @@ def ssd_bwd_vs_plain(device) -> dict:
                                      got["dchunk_in"], got["end"], chunk=chunk)
                 got.update(zip(("dx", "ddt", "dA", "dB", "dC", "dD"), outs))
                 torch.cuda.synchronize(device)
+                launched = dict(LAUNCHES)
+                check(launched == dict.fromkeys(bwd_kernels(x.dtype), 1),
+                      f"the SSD backward at {shape} {name} launched {launched}")
                 ref["dS"] = chunk_dstate_ref(dy, cum, C, chunk=chunk)
                 ref["dchunk_in"], ref["dh0"], ref["end"] = state_pass_bwd_ref(
                     got["dS"], cum, h_ins, dhf, chunk=chunk)
@@ -1079,20 +1095,23 @@ def ssd_bwd_vs_plain(device) -> dict:
                 line = {w: ssd_bwd_check(w, got[w], ref[w], name, where,
                                          dA_scale if w == "dA" else None)
                         for w in got}
-                errs = line
+                errs[name] = line
                 print(f"[kernel] ssd backward {name} (Bt,S,H,P,G,N,chunk,model A)="
                       f"{shape} h0={with_h0} dh_final={with_dhf}: min cum "
                       f"{cum.min().item():.1f}, max|err| "
                       + ", ".join(f"{w} {e:.3e}" for w, e in line.items())
-                      + f" (tol {SSD_BWD_TOL[name]:g}; {', '.join(SSD_BWD_SCALED)} "
+                      + f", launches {launched} (tol {SSD_BWD_TOL[name]:g}; "
+                      f"{', '.join(SSD_BWD_SCALED)} "
                       "relative to the largest |ref|, dA to the sum of its "
                       f"terms' magnitudes, {dA_scale.max().item():.4e})")
                 del got, ref
-    # the last case: the training shape, bf16, no h0 or dh_final
-    return {"ssd_bwd_dstate": errs["dS"],
-            "ssd_bwd_state_pass": max(errs["dchunk_in"], errs["dh0"], errs["end"]),
-            "ssd_bwd_chunk": max(errs[w] for w in ("dx", "ddt", "dA", "dB", "dC",
-                                                   "dD"))}
+    # the last case of each type: the training shape, no h0 or dh_final
+    grads = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    bf, f32 = errs["bfloat16"], errs["float32"]
+    return {"ssd_bwd_dstate": bf["dS"],
+            "ssd_bwd_state_pass": max(bf["dchunk_in"], bf["dh0"], bf["end"]),
+            SSD_BWD_TC: max(bf[w] for w in grads),
+            "ssd_bwd_chunk_f32": max(f32[w] for w in grads)}
 
 
 def functions_vs_autograd(device) -> None:
@@ -1105,6 +1124,7 @@ def functions_vs_autograd(device) -> None:
     import torch
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.ssd_scan.kernel import bwd_kernels
     from repro_torch.kernels.ssd_scan.ops import ssd
     names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
     # the glue around the kernels, which phase 2 checks at every shape: the
@@ -1129,7 +1149,7 @@ def functions_vs_autograd(device) -> None:
                     launches = dict(LAUNCHES)
             fwd = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan") \
                 if name == "bfloat16" else ("ssd_chunk",)
-            check(launches == dict.fromkeys(fwd + SSD_BWD_KERNELS, 1),
+            check(launches == dict.fromkeys(fwd + bwd_kernels(x.dtype), 1),
                   f"ops.ssd with grad launched {launches}")
             line = {w: ssd_bwd_check(w, a, b, name, f"ops.ssd {shape} {name}")
                     for w, a, b in zip(names, *grads.values())}
@@ -1293,17 +1313,20 @@ def rglru_bwd_timing(device) -> dict:
     return out
 
 
-def ssd_bwd_bounds(shape) -> dict:
+def ssd_bwd_bounds(shape, in_bytes: int = 2,
+                   peak_flops: float = PEAK_BF16_FLOPS) -> dict:
     """Least ms of each SSD backward kernel and of the whole SSD backward at
-    a bf16 ``shape`` (x, dy, B, C, dx bf16; the rest f32): each input read
-    once, each output written once; the products each needs, once (per
-    (batch, head, chunk) the causal dy.x^T and T^T.dy, Q(Q+1)/2 P products
-    each, and B.dchunk_in^T, x.dchunk_in and dy.h_in, Q P N each; per
-    (batch, group, chunk) C.B^T, dCB.B and dCB^T.C, Q(Q+1)/2 N each), at
-    the bf16 rate of their inputs' type."""
+    ``shape`` (x, dy, B, C, dx of ``in_bytes``: 2 bf16, 4 f32; the rest f32):
+    each input read once, each output written once; the products each
+    needs, once (per (batch, head, chunk) the causal dy.x^T and T^T.dy,
+    Q(Q+1)/2 P products each, and B.dchunk_in^T, x.dchunk_in and dy.h_in,
+    Q P N each; per (batch, group, chunk) C.B^T, dCB.B and dCB^T.C,
+    Q(Q+1)/2 N each), at ``peak_flops`` (the rate of their inputs' type;
+    ssd_bwd_state_pass's f32 sums at the f32 rate)."""
     Bt, S, H, P, G, N, Q = shape
     nc = S // Q
-    x, bc, f32 = 2 * Bt * S * H * P, 2 * Bt * S * G * N, 4 * Bt * S * H
+    x = in_bytes * Bt * S * H * P
+    bc, f32 = in_bytes * Bt * S * G * N, 4 * Bt * S * H
     states, per_chunk = 4 * Bt * nc * H * P * N, 4 * Bt * nc * H
     causal = Q * (Q + 1) // 2
     dstate_flops = 2 * Bt * nc * H * Q * P * N
@@ -1312,7 +1335,7 @@ def ssd_bwd_bounds(shape) -> dict:
     f32_bc = 4 * Bt * S * G * N
     return {
         # dy, cum, C read; dS written
-        "ssd_bwd_dstate": bound(x + f32 + bc + states, dstate_flops),
+        "ssd_bwd_dstate": bound(x + f32 + bc + states, dstate_flops, peak_flops),
         # dS, h_ins and cum (the chunk ends) read (this run has no
         # dh_final); dchunk_in, dh0 and the chunk-end term written
         "ssd_bwd_state_pass": bound(
@@ -1321,25 +1344,33 @@ def ssd_bwd_bounds(shape) -> dict:
         # x, dt, cum, B, C, dy, h_ins, dchunk_in, the chunk-end term read; dx,
         # ddt, dB and dC (f32) written
         "ssd_bwd_chunk": bound(2 * x + 2 * f32 + 2 * bc + 2 * states + per_chunk
-                               + x + f32 + 2 * f32_bc, chunk_flops),
+                               + x + f32 + 2 * f32_bc, chunk_flops, peak_flops),
         # x, dt, cum, B, C, dy, h_ins read; dx, ddt, dB, dC, dh0 written
         "whole": bound(2 * x + 2 * f32 + 2 * bc + states
                        + x + f32 + 2 * f32_bc + states // nc,
-                       dstate_flops + chunk_flops),
+                       dstate_flops + chunk_flops, peak_flops),
     }
 
 
 def ssd_bwd_timing(device) -> dict:
     """Phase 3 for the SSD backward at mamba2-780m's training shape (bf16 x,
-    B, C, dy; the model's A): each kernel beside its plain version and its
-    bound, with its registers and shared bytes, then the whole backward
-    (the three wrappers, with the partial sums in PyTorch) beside autograd
-    through ``ssd_chunked_ref`` from the same inputs.  One PyTorch call,
-    ``torch.einsum``, computes ssd_bwd_dstate's product from dy exp(cum);
-    none computes the other two: library_ms null."""
+    B, C, dy; the model's A): each kernel of the bf16 path (ssd_bwd_dstate,
+    ssd_bwd_state_pass, the tensor-core ssd_bwd_chunk_tc) beside its plain
+    version and its bound, with its registers and shared bytes; ssd_bwd.cu's
+    CUDA-core ssd_bwd_chunk on the same bf16 inputs (the design the
+    tensor-core kernel replaced there: ``ssd_bwd_chunk_cuda_cores``, checked
+    as phase 2 checks the bf16 kernels), and beside it that kernel on f32
+    inputs (its live path, the f32-compute gate's) with its f32 bound under
+    ``f32_``; then the whole bf16 backward (the three wrappers, with the
+    partial sums in PyTorch) beside autograd through ``ssd_chunked_ref`` from
+    the same inputs.  One PyTorch call, ``torch.einsum``, computes
+    ssd_bwd_dstate's product from dy exp(cum); none computes the others:
+    library_ms null."""
     import torch
-    from repro_torch.kernels.ssd_scan.kernel import (bwd_attributes,
+    from repro_torch.kernels.ssd_scan.kernel import (BWD_TC_HEAD_BLOCK,
+                                                     bwd_attributes,
                                                      ssd_bwd_chunk,
+                                                     ssd_bwd_chunk_cuda_cores,
                                                      ssd_bwd_dstate,
                                                      ssd_bwd_state_pass)
     from repro_torch.kernels.ssd_scan.ref import (chunk_bwd_ref,
@@ -1351,17 +1382,18 @@ def ssd_bwd_timing(device) -> dict:
     chunk = SSD_SERVE[6]
     dS = ssd_bwd_dstate(dy, cum, C, chunk=chunk)
     dchunk_in, _, end = ssd_bwd_state_pass(dS, cum, h_ins, chunk=chunk)
+    chunk_args = (x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in, end)
     runs = {
         "ssd_bwd_dstate": (lambda: ssd_bwd_dstate(dy, cum, C, chunk=chunk),
                            lambda: chunk_dstate_ref(dy, cum, C, chunk=chunk)),
         "ssd_bwd_state_pass": (
             lambda: ssd_bwd_state_pass(dS, cum, h_ins, chunk=chunk),
             lambda: state_pass_bwd_ref(dS, cum, h_ins, chunk=chunk)),
+        SSD_BWD_TC: (lambda: ssd_bwd_chunk(*chunk_args, chunk=chunk),
+                     lambda: chunk_bwd_ref(*chunk_args, chunk=chunk)),
         "ssd_bwd_chunk": (
-            lambda: ssd_bwd_chunk(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in,
-                                  end, chunk=chunk),
-            lambda: chunk_bwd_ref(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in,
-                                  end, chunk=chunk)),
+            lambda: ssd_bwd_chunk_cuda_cores(*chunk_args, chunk=chunk),
+            lambda: chunk_bwd_ref(*chunk_args, chunk=chunk)),
     }
     # dS's product alone, in one PyTorch call: torch.einsum of dy exp(cum)
     # (prescaled here, outside the timing) and C, as chunk_dstate_ref forms it
@@ -1373,19 +1405,43 @@ def ssd_bwd_timing(device) -> dict:
     library = {"ssd_bwd_dstate": lambda: torch.einsum("bcqgrp,bcqgn->bcgrpn",
                                                       dyw, cf)}
     bounds = ssd_bwd_bounds(SSD_SERVE)
+    bounds[SSD_BWD_TC] = bounds["ssd_bwd_chunk"]
     out = {}
     for name, (fast, plain) in runs.items():
         out[name] = {"ms": time_ms(fast, 10), "plain_ms": time_ms(plain, 2, warmup=1),
                      "library_ms": time_ms(library[name], 10)
                      if name in library else None}
         out[name]["bound_ms"], out[name]["bound_by"] = bounds[name]
-        out[name].update(bwd_attributes(name, *SSD_SERVE[3:6:2], torch.bfloat16))
+        out[name].update(bwd_attributes(name, P, N, torch.bfloat16))
+    out[SSD_BWD_TC]["head_block"] = BWD_TC_HEAD_BLOCK
+    # the replaced kernel's gradients on these inputs, gated as phase 2's
+    *ref, dA_scale = chunk_bwd_ref(*chunk_args, chunk=chunk, dA_scale=True)
+    got = ssd_bwd_chunk_cuda_cores(*chunk_args, chunk=chunk)
+    out["ssd_bwd_chunk"]["max_abs_err"] = max(
+        ssd_bwd_check(w, g, r, "bfloat16", "ssd_bwd_chunk_cuda_cores at the "
+                      "training shape", dA_scale if w == "dA" else None)
+        for w, g, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, ref))
+    del got, ref
+    # ... and on f32 inputs, its live path
+    f32_args = tuple(t.float() if t.dtype == torch.bfloat16 else t
+                     for t in chunk_args)
+    f32 = out["ssd_bwd_chunk"]
+    f32["f32_ms"] = time_ms(lambda: ssd_bwd_chunk(*f32_args, chunk=chunk), 10)
+    f32["f32_plain_ms"] = time_ms(lambda: chunk_bwd_ref(*f32_args, chunk=chunk),
+                                  2, warmup=1)
+    f32["f32_bound_ms"], f32["f32_bound_by"] = ssd_bwd_bounds(
+        SSD_SERVE, 4, PEAK_F32_FLOPS)["ssd_bwd_chunk"]
+    f32.update({f"f32_{k}": v for k, v in
+                bwd_attributes("ssd_bwd_chunk", P, N, torch.float32).items()})
+    del dyw, cf, f32_args
+    for name in runs:
         print(f"[timing] {name} at Bt=4 S=2048 H=48 P=64 G=1 N=128 chunk=256 "
               "bf16 (library_ms: ssd_bwd_dstate's product by torch.einsum on "
               "the prescaled f32 dy exp(cum) and C; no single PyTorch call "
-              "computes the other two, null): "
+              "computes the others, null; ssd_bwd_chunk: ssd_bwd.cu's "
+              "CUDA-core kernel, which the bf16 path no longer runs, and f32_: "
+              "the same kernel on f32 inputs): "
               + ", ".join(f"{k} {v}" for k, v in out[name].items()))
-    del dyw, cf
 
     def kernels():
         s = ssd_bwd_dstate(dy, cum, C, chunk=chunk)
@@ -1400,9 +1456,9 @@ def ssd_bwd_timing(device) -> dict:
                  y_ref, leaves, dy, retain_graph=True), 2, warmup=1)}
     whole["bound_ms"], whole["bound_by"] = bounds["whole"]
     del y_ref, leaves
-    print("[timing] whole SSD backward at the same shape (ms; the three kernels "
-          "and the partial sums; plain_ms: autograd through ssd_chunked_ref): "
-          + ", ".join(f"{k} {v}" for k, v in whole.items()))
+    print("[timing] whole SSD backward at the same shape, bf16 (ms; the three "
+          "kernels and the partial sums; plain_ms: autograd through "
+          "ssd_chunked_ref): " + ", ".join(f"{k} {v}" for k, v in whole.items()))
     out["ssd_bwd_chunk"]["whole_backward"] = whole
     torch.cuda.empty_cache()
     return out
@@ -1664,7 +1720,7 @@ def layer_grad_parity(cfg, params, batch) -> dict:
         ssm.ssd, rglru.rglru_scan, layers.flash_attention = saved
     counts = {k: len(v) for k, v in seen.items()}
     want = TRAIN_PATHS[cfg.name]
-    check(counts == {"ssd": want.get("ssd_bwd_chunk", 0),
+    check(counts == {"ssd": want.get(SSD_BWD_TC, 0),
                      "rglru": want.get("rglru_scan_bwd", 0),
                      "attention": want.get("flash_attn_bwd_dq", 0)},
           f"{cfg.name}: layer backwards compared {counts}")
@@ -1714,10 +1770,12 @@ def grad_parity(device, arch: str) -> dict:
     floor, floor_key = worst_leaf(g_n, g_p)
     del g_n, g_p
     want = dict(TRAIN_PATHS[arch])
-    if cfg.ssm:  # f32 x, B, C take the f32 path: ssd_chunk and PyTorch glue
+    if cfg.ssm:  # f32 x, B, C take the f32 path: ssd_chunk and PyTorch glue,
+        # and the CUDA-core ssd_bwd_chunk
         for name in ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"):
             want.pop(name)
         want["ssd_chunk"] = TRAIN_PATHS[arch]["ssd_chunk_scan"]
+        want["ssd_bwd_chunk"] = want.pop(SSD_BWD_TC)
     check(launches == want, f"{arch} f32-compute step launched {launches}, "
           f"expected {want}")
     term = "SSD intra term" if cfg.ssm else "RG-LRU scan output" \
@@ -2020,9 +2078,11 @@ def main() -> int:
         for name in BWD_KERNEL_NAMES]
     ssd_bwd = [{
         "name": name, "route": "cuda",
-        # the training path's bf16 dS runs ssd_bf16.cu's tensor-core kernel
+        # the training path's bf16 dS runs ssd_bf16.cu's tensor-core kernel,
+        # its bf16 ssd_bwd_chunk ssd_bwd_tc.cu's
         "source": "src/repro_torch/kernels/ssd_scan/csrc/"
-                  + ("ssd_bf16.cu" if name == "ssd_bwd_dstate" else "ssd_bwd.cu"),
+                  + {"ssd_bwd_dstate": "ssd_bf16.cu",
+                     SSD_BWD_TC: "ssd_bwd_tc.cu"}.get(name, "ssd_bwd.cu"),
         # no TPU kernel computes a gradient: these are the gradient of the
         # forward's TPU kernel and its state passing
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:48",
@@ -2037,15 +2097,30 @@ def main() -> int:
             "ssd_bwd_state_pass": "reverse recurrence over the chunks, 4 "
                                   "elements a thread, block partials of the "
                                   "chunk-end term",
-            "ssd_bwd_chunk": "a block per (batch x chunk, 4 heads of a group): "
-                             "32-row tiles, dCB summed over the heads in the "
-                             "block, dx in shared memory, dB and dC block "
-                             "partials summed by PyTorch; CUDA cores, f32"}[name],
+            "ssd_bwd_chunk": "a block per (batch x chunk, 3 heads of a "
+                             "group), 32-row tiles, dCB summed over the heads "
+                             "in the block, dx in shared memory, dB and dC "
+                             "block partials summed by PyTorch; CUDA cores, "
+                             "f32; timed on the bf16 inputs that "
+                             "ssd_bwd_chunk_tc now takes, and under f32_ on "
+                             "f32 inputs, the only ones it still runs",
+            SSD_BWD_TC: "bf16 inputs: tensor cores (mma.sync m16n8k16, "
+                        "ldmatrix from swizzled shared memory, two cp.async "
+                        "stages a head); a block per (batch x chunk, group, "
+                        "head block), 8 warps each owning a 16-row strip in "
+                        "two key rounds (dx, dB, key shares, products "
+                        "transposed) and two query rounds (dC, query "
+                        "shares); T, dCB, dchunk_in and h_in as hi + lo "
+                        "bf16; dB and dC head-block partials summed by "
+                        "PyTorch; no atomics"}[name],
         "launches": launches["mamba2-780m training"].get(name, 0),
         "f32_compute_launches":
             launches["mamba2-780m training"]["f32 compute"].get(name, 0),
-        "max_abs_err": ssd_bwd_errs[name], **ssd_bwd_time[name]}
-        for name in SSD_BWD_KERNELS]
+        "max_abs_err": ssd_bwd_errs.get(name), **ssd_bwd_time[name]}
+        for name in SSD_BWD_KERNELS + (SSD_BWD_TC,)]
+    # ssd_bwd_chunk's bf16 error comes from phase 3, its f32 one from phase 2
+    ssd_bwd[SSD_BWD_KERNELS.index("ssd_bwd_chunk")]["f32_max_abs_err"] = \
+        ssd_bwd_errs["ssd_bwd_chunk_f32"]
     ssd_bf16 = [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_bf16.cu",

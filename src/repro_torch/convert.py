@@ -3,6 +3,8 @@
 The caller hands over the reference's parameters as nested dicts of numpy
 arrays (``jax.device_get(params)``); the port imports nothing of JAX.  Every
 key and shape is checked against the port's own ``model_defs`` both ways.
+A bf16 array (``ml_dtypes.bfloat16``, which torch cannot take) is carried by
+its 16-bit pattern.
 """
 from __future__ import annotations
 
@@ -32,8 +34,17 @@ def state_dict_from_tree(tree, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
         if a.shape != shape:
             raise ValueError(f"{cfg.name}: {key} has shape {a.shape}, "
                              f"expected {shape}")
-        out[key] = torch.from_numpy(np.array(a))  # a writable copy
+        out[key] = _tensor(a)
     return out
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A writable tensor copy of ``a``; a bfloat16 array (numpy has no such
+    type of its own: ``ml_dtypes``' is the reference's) by its bits, viewed
+    as ``torch.bfloat16``."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 def module_from_tree(tree, cfg: ArchConfig, device="cuda") -> LM:

@@ -8,10 +8,11 @@
   tensor cores, y written once; ``ops.ssd`` takes them for bf16 inputs.
 - ``ssd_bwd_dstate``, ``ssd_bwd_state_pass`` and ``ssd_bwd_chunk``
   (``csrc/ssd_bwd.cu``): the gradient of the whole SSD in either input type,
-  on the CUDA cores in f32, but ``ssd_bwd_dstate`` in bf16, which runs the
-  tensor-core kernel of ``csrc/ssd_bf16.cu``; ``ops.SSDScan`` runs them.
-  They have no TPU counterpart: the JAX package differentiates its jnp
-  path.
+  on the CUDA cores in f32, but in bf16 ``ssd_bwd_dstate`` runs the
+  tensor-core kernel of ``csrc/ssd_bf16.cu`` and ``ssd_bwd_chunk`` that of
+  ``csrc/ssd_bwd_tc.cu`` (counted as ``ssd_bwd_chunk_tc``); ``ops.SSDScan``
+  runs them.  They have no TPU counterpart: the JAX package differentiates
+  its jnp path.
 
 On a CPU tensor each wrapper computes its kernel's plain version (``ref``);
 on a CUDA tensor it checks its inputs, launches the kernel and counts the
@@ -49,6 +50,15 @@ BWD_KERNELS = ("ssd_bwd_dstate", "ssd_bwd_state_pass", "ssd_bwd_chunk")
 # PyTorch.  The fastest of 1..4 at mamba2-780m's training shape on the H100
 # (tools/ssd_bwd_tune.py, PERF.md).
 BWD_HEAD_BLOCK = 3
+# The bf16 ssd_bwd_chunk (csrc/ssd_bwd_tc.cu): its library, launch count
+# name, and the heads a block walks (dB and dC summed over them in the
+# block); the fastest of those tools/ssd_bwd_tc_tune.py times at mamba2-780m's
+# training shape on the H100 (PERF.md).  At most 13 at (P, N) = (64, 128)
+# (shared memory, TcLayout in the .cu file).
+BWD_TC_LIBRARY = "ssd_bwd_tc"
+BWD_TC_KERNEL = "ssd_bwd_chunk_tc"
+BWD_TC_HEAD_BLOCK = 12
+BF16_BWD_KERNELS = ("ssd_bwd_dstate", "ssd_bwd_state_pass", BWD_TC_KERNEL)
 _BWD_PASS_THREADS = 256  # state elements / 4 a block of ssd_bwd_state_pass covers
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_X = 2 ** 31 - 1
@@ -62,6 +72,11 @@ def _function(library: str, name: str, n_ptr: int, n_int: int):
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def bwd_kernels(dtype: torch.dtype) -> tuple:
+    """The launch count names of the SSD backward's kernels for x's type."""
+    return BF16_BWD_KERNELS if dtype == torch.bfloat16 else BWD_KERNELS
 
 
 def _check(x, dt, cum, B, C, chunk, dtypes=tuple(_DTYPES)):
@@ -333,9 +348,33 @@ def ssd_bwd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     end_term: (Bt, nc, H) f32.
 
     Returns (dx in x's dtype, ddt (Bt, S, H), dA (H,), dB, dC (Bt, S, G, N),
-    dD (H,)), the rest f32 (``chunk_bwd_ref``); the kernel writes dB, dC, dA
-    and dD as partial sums, one per head block (dB, dC) or per (batch,
-    chunk) (dA, dD), and PyTorch adds them."""
+    dD (H,)), the rest f32 (``chunk_bwd_ref``).  bf16 launches the
+    tensor-core kernel (``ssd_bwd_chunk_tc``, a block per (batch * chunk,
+    group, BWD_TC_HEAD_BLOCK heads)), f32 the CUDA-core kernel
+    (``ssd_bwd_chunk_cuda_cores``); each writes dB, dC, dA and dD as partial
+    sums, one per head block (dB, dC) or per (batch, chunk) (dA, dD), and
+    PyTorch adds them."""
+    return _bwd_chunk(x.dtype == torch.bfloat16, x, dt, A, cum, B, C, D, dy,
+                      h_ins, dchunk_in, end_term, chunk)
+
+
+def ssd_bwd_chunk_cuda_cores(x: torch.Tensor, dt: torch.Tensor,
+                             A: torch.Tensor, cum: torch.Tensor,
+                             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                             dy: torch.Tensor, h_ins: torch.Tensor,
+                             dchunk_in: torch.Tensor, end_term: torch.Tensor, *,
+                             chunk: int):
+    """``ssd_bwd_chunk`` by ``csrc/ssd_bwd.cu``'s CUDA-core kernel (a block
+    per (batch * chunk, BWD_HEAD_BLOCK heads), counted as ``ssd_bwd_chunk``)
+    in either input type: ``ssd_bwd_chunk``'s f32 path, and on bf16 inputs
+    the design that the tensor-core kernel replaced, which ``chip_smoke.py``
+    times beside it."""
+    return _bwd_chunk(False, x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in,
+                      end_term, chunk)
+
+
+def _bwd_chunk(tensor_cores: bool, x, dt, A, cum, B, C, D, dy, h_ins,
+               dchunk_in, end_term, chunk: int):
     if x.device.type == "cpu":
         dx, *rest = chunk_bwd_ref(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in,
                                   end_term, chunk=chunk)
@@ -353,23 +392,32 @@ def ssd_bwd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"and dchunk_in {(Bt, nc, H, P, N)}")
     if any(t.dtype != torch.float32 for t in (A, D, h_ins, dchunk_in, end_term)):
         raise TypeError("A, D, h_ins, dchunk_in and end_term must be float32")
-    _check_grid(x, B, chunk, BWD_HEAD_BLOCK)
+    hb = BWD_TC_HEAD_BLOCK if tensor_cores else BWD_HEAD_BLOCK
+    _check_grid(x, B, chunk, hb)
     _check_device(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in, end_term,
-                  aligned=False)
-    nhb = -(-(H // G) // BWD_HEAD_BLOCK)
+                  aligned=tensor_cores)
+    nhb = -(-(H // G) // hb)
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
     dB_part = torch.empty(nhb, Bt, S, G, N, dtype=torch.float32, device=x.device)
-    dC_part = torch.zeros_like(dB_part)
+    # the CUDA-core kernel adds into dC_part; the tensor-core one writes it
+    dC_part = torch.empty_like(dB_part) if tensor_cores \
+        else torch.zeros_like(dB_part)
     dA_part = torch.empty(Bt, nc, H, dtype=torch.float32, device=x.device)
     dD_part = torch.empty_like(dA_part)
-    _launch("ssd_bwd_chunk", _function(BWD_LIBRARY, "ssd_bwd_chunk", 17, 9),
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), cum.data_ptr(),
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), cum.data_ptr(),
             B.data_ptr(), C.data_ptr(), D.data_ptr(), dy.data_ptr(),
             h_ins.data_ptr(), dchunk_in.data_ptr(), end_term.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
-            dA_part.data_ptr(), dD_part.data_ptr(), Bt, S, H, G, P, N, chunk,
-            BWD_HEAD_BLOCK, _DTYPES[x.dtype], device=x.device)
+            dA_part.data_ptr(), dD_part.data_ptr())
+    if tensor_cores:
+        _launch(BWD_TC_KERNEL,
+                _function(BWD_TC_LIBRARY, "ssd_bwd_chunk_tc", 17, 8),
+                *ptrs, Bt, S, H, G, P, N, chunk, hb, device=x.device)
+    else:
+        _launch("ssd_bwd_chunk", _function(BWD_LIBRARY, "ssd_bwd_chunk", 17, 9),
+                *ptrs, Bt, S, H, G, P, N, chunk, hb, _DTYPES[x.dtype],
+                device=x.device)
     return (dx, ddt, dA_part.sum((0, 1)), dB_part.sum(0), dC_part.sum(0),
             dD_part.sum((0, 1)))
 
@@ -378,17 +426,22 @@ def bwd_attributes(kernel: str, P: int, N: int, dtype: torch.dtype) -> dict:
     """Registers, local bytes (spills and stack) and shared bytes of a
     compiled SSD backward kernel at (P, N) and input type, by
     ``cudaFuncGetAttributes`` (for the bf16 ``ssd_bwd_dstate``, the
-    tensor-core kernel at STATE_HEAD_BLOCK)."""
+    tensor-core kernel at STATE_HEAD_BLOCK; ``ssd_bwd_chunk_tc``, the bf16
+    ``ssd_bwd_chunk``, at BWD_TC_HEAD_BLOCK)."""
     if kernel == "ssd_bwd_dstate" and dtype == torch.bfloat16:
         return attributes(kernel, P, N)
-    fn = getattr(load(BWD_LIBRARY), "ssd_bwd_attributes")
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+    if kernel == BWD_TC_KERNEL:
+        fn = getattr(load(BWD_TC_LIBRARY), "ssd_bwd_tc_attributes")
+        args = (P, N, BWD_TC_HEAD_BLOCK)
+    else:
+        fn = getattr(load(BWD_LIBRARY), "ssd_bwd_attributes")
+        args = (BWD_KERNELS.index(kernel), P, N, _DTYPES[dtype])
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)] * 3
     fn.restype = ctypes.c_int
     vals = [ctypes.c_int() for _ in range(3)]
-    err = fn(BWD_KERNELS.index(kernel), P, N, _DTYPES[dtype],
-             *(ctypes.byref(v) for v in vals))
+    err = fn(*args, *(ctypes.byref(v) for v in vals))
     if err:
-        raise RuntimeError(f"ssd_bwd_attributes failed with CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} failed with CUDA error {err}")
     return dict(zip(("registers", "local_bytes", "shared_bytes"),
                     (v.value for v in vals)))
 

@@ -10,9 +10,11 @@ nowhere else):
 - f32: ``_intra_then_pass``, the CUDA-core intra-chunk kernel with the state
   passing, carry and D skip in PyTorch.
 Where a gradient is wanted on the card, ``SSDScan`` pairs either path with
-the backward kernels (``csrc/ssd_bwd.cu``); on the CPU the plain versions
-are differentiated by autograd, as the reference differentiates its jnp path
-off its accelerator.
+the backward kernels (``csrc/ssd_bwd.cu`` for f32; for bf16 the tensor-core
+``ssd_bwd_dstate`` of ``csrc/ssd_bf16.cu`` and ``ssd_bwd_chunk`` of
+``csrc/ssd_bwd_tc.cu``); on the CPU the plain versions are differentiated by
+autograd, as the reference differentiates its jnp path off its
+accelerator.
 """
 from __future__ import annotations
 

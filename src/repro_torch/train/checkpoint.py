@@ -5,7 +5,10 @@ The layout is the reference's, ``step-{n}.npz`` beside ``manifest.json`` with
 ``/``-joined keys (``params/embed``, ``opt/m/...``, ``opt/step``), so a
 checkpoint written by either package restores in the other.  Restore puts
 the arrays on ``device``: the card unless the caller asks for the CPU, and
-without a card it raises.  Resharding onto a mesh waits for the port's
+without a card it raises.  numpy has no bf16 type, so a bf16 tensor is saved
+as its 16-bit pattern (int16) and the manifest records every key's dtype
+(``dtypes``); restore views those bits as bf16 again.  A manifest without
+``dtypes`` (the reference's) restores each array in its own type.  Resharding onto a mesh waits for the port's
 sharding work.
 """
 from __future__ import annotations
@@ -23,20 +26,28 @@ from ..models.params import flatten as _flatten
 from ..models.params import unflatten as _unflatten
 
 
-def _host_arrays(state) -> dict:
-    """Flat key -> numpy copy of each tensor (a copy even on the CPU, so the
-    in-place updates of later steps do not reach a pending write)."""
-    return {k: v.detach().to("cpu", copy=True).numpy()
-            for k, v in _flatten(state).items()}
+def _host_arrays(state) -> Tuple[dict, dict]:
+    """(flat key -> numpy copy of each tensor, flat key -> its dtype's name).
+    A copy even on the CPU, so the in-place updates of later steps do not
+    reach a pending write; a bf16 tensor as its bits, int16."""
+    arrays, dtypes = {}, {}
+    for k, v in _flatten(state).items():
+        v = v.detach().to("cpu", copy=True)
+        dtypes[k] = str(v.dtype).removeprefix("torch.")
+        arrays[k] = (v.view(torch.int16) if v.dtype == torch.bfloat16 else v).numpy()
+    return arrays, dtypes
 
 
-def _write(path: str, arrays: dict, step: int, extra: Optional[dict]) -> None:
+def _write(path: str, host: Tuple[dict, dict], step: int,
+           extra: Optional[dict]) -> None:
+    arrays, dtypes = host
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, f".tmp-{step}.npz")
     np.savez(tmp, **arrays)
     os.replace(tmp, os.path.join(path, f"step-{step}.npz"))
     with open(os.path.join(path, "manifest.json"), "w") as f:
-        json.dump({"step": step, "keys": sorted(arrays), "extra": extra or {}}, f)
+        json.dump({"step": step, "keys": sorted(arrays), "dtypes": dtypes,
+                   "extra": extra or {}}, f)
 
 
 def save_checkpoint(path: str, state, step: int, *,
@@ -55,11 +66,11 @@ class AsyncCheckpointer:
 
     def save(self, state, step: int, extra=None) -> None:
         self.wait()
-        arrays = _host_arrays(state)  # the snapshot, on the caller's thread
+        host = _host_arrays(state)  # the snapshot, on the caller's thread
 
         def write():
             try:
-                _write(self.path, arrays, step, extra)
+                _write(self.path, host, step, extra)
             except Exception as e:  # reported by wait()
                 self._error = e
 
@@ -94,7 +105,18 @@ def restore_checkpoint(path: str, *, step: Optional[int] = None,
             raise FileNotFoundError(f"no checkpoint under {path}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    dtypes = manifest.get("dtypes", {})
     with np.load(os.path.join(path, f"step-{step}.npz")) as data:
-        flat = {k: torch.from_numpy(np.array(data[k])).to(device)
-                for k in data.files}
+        flat = {k: _tensor(data[k], dtypes.get(k)).to(device) for k in data.files}
     return _unflatten(flat), step, manifest.get("extra", {})
+
+
+def _tensor(a: np.ndarray, dtype: Optional[str]) -> torch.Tensor:
+    """A saved array as a tensor: bf16 from its recorded bits, any other in
+    its own type."""
+    t = torch.from_numpy(np.array(a))
+    if dtype == "bfloat16":
+        if t.dtype != torch.int16:
+            raise ValueError(f"a bf16 entry must be saved as int16 bits, got {t.dtype}")
+        return t.view(torch.bfloat16)
+    return t

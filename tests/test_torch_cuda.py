@@ -28,12 +28,15 @@ kernels against their plain versions from the same inputs: 1e-4 in f32 and
 the gradients that sum over a chunk's rows (all but dchunk_in and dh0, which
 come from an elementwise recurrence over the chunks).
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import ARCHS
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.build import load
 from repro_torch.kernels.flash_attention.kernel import (BWD_KERNELS, HEAD_DIMS,
                                                         attributes,
                                                         bwd_attributes,
@@ -610,8 +613,9 @@ def test_ssd_bwd_kernels_vs_plain_on_card(cuda_device, Bt, S, H, P, G, N, chunk,
     got = ssd_bwd_chunk(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in, end,
                         chunk=chunk)
     torch.cuda.synchronize()
-    assert {k: LAUNCHES[k] - before.get(k, 0) for k in ssd_kernel.BWD_KERNELS} \
-        == dict.fromkeys(ssd_kernel.BWD_KERNELS, 1)
+    names = ssd_kernel.bwd_kernels(dtype)  # bf16: the tensor-core ssd_bwd_chunk
+    assert {k: LAUNCHES[k] - before.get(k, 0) for k in names} \
+        == dict.fromkeys(names, 1)
     assert got[0].dtype == dtype
     _ssd_bwd_close("dS", dS, chunk_dstate_ref(dy, cum, C, chunk=chunk), dtype)
     for what, g, r in zip(("dchunk_in", "dh0", "end"), (dchunk_in, dh0, end),
@@ -649,6 +653,91 @@ def test_ssd_bwd_dstate_tensor_cores_on_card(cuda_device, Bt, S, H, P, G, N,
     assert attrs["local_bytes"] == 0, attrs
 
 
+# The bf16 ssd_bwd_chunk's bars (csrc/ssd_bwd_tc.cu), as in
+# tests/test_torch_cuda_emu.py: dx, written in bf16, 2e-2; the f32 ddt, dB,
+# dC and dD 1e-4, which the hi + lo split of the f32 operands meets and one
+# rounding of them to bf16 misses; dA 1e-3, above the f32 rounding floor of
+# its cancelling terms (the f32 reference itself is 1.1e-4 from an f64
+# evaluation at a 256-row chunk).
+TC_BWD_TOL = {"dx": 2e-2, "ddt": 1e-4, "dA": 1e-3, "dB": 1e-4, "dC": 1e-4,
+              "dD": 1e-4}
+
+
+def _ssd_bwd_chunk_tc_at(head_block, x, dt, A, cum, B, C, D, dy, h_ins,
+                         dchunk_in, end, chunk):
+    """The tensor-core kernel by its C entry at another head block than the
+    wrapper's, with the wrapper's partial sums."""
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2:]
+    nc = S // chunk
+    nhb = -(-(H // G) // head_block)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dB_part, dC_part = (torch.full((nhb, Bt, S, G, N), float("nan"),
+                                   device=x.device) for _ in range(2))
+    dA_part, dD_part = (torch.empty(Bt, nc, H, device=x.device)
+                        for _ in range(2))
+    fn = load(ssd_kernel.BWD_TC_LIBRARY).ssd_bwd_chunk_tc
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    assert fn(*(t.data_ptr() for t in (x, dt, A, cum, B, C, D, dy, h_ins,
+                                       dchunk_in, end, dx, ddt, dB_part,
+                                       dC_part, dA_part, dD_part)),
+              Bt, S, H, G, P, N, chunk, head_block,
+              torch.cuda.current_stream().cuda_stream) == 0
+    return (dx, ddt, dA_part.sum((0, 1)), dB_part.sum(0), dC_part.sum(0),
+            dD_part.sum((0, 1)))
+
+
+@pytest.mark.parametrize("head_block", [ssd_kernel.BWD_TC_HEAD_BLOCK, 1, 4, 13])
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk", [
+    (1, 2048, 48, 64, 1, 128, 256),   # mamba2-780m's training shape, batch 1
+    (4, 2048, 48, 64, 1, 128, 256),   # ... and batch 4
+    (2, 240, 12, 64, 2, 128, 24),     # two groups, a chunk not a multiple of 16
+    (1, 40, 6, 16, 3, 16, 5),         # three groups, a 5-row chunk
+])
+def test_ssd_bwd_chunk_tensor_cores_on_card(cuda_device, Bt, S, H, P, G, N,
+                                            chunk, head_block):
+    """bf16 ssd_bwd_chunk (the tensor-core kernel of csrc/ssd_bwd_tc.cu)
+    against chunk_bwd_ref with the model's A, h_in from h0 and dchunk_in and
+    the chunk-end term from the plain versions, within TC_BWD_TOL of each
+    gradient's largest magnitude (dA: of its terms' magnitudes): through the
+    wrapper at its head block (one launch counted as ssd_bwd_chunk_tc, none
+    of the CUDA-core kernel), and by its C entry at others (1, a ragged 4,
+    the shared memory's largest 13); the kernel uses no local memory."""
+    x, dt, A, B, C, D = _ssd_inputs(cuda_device, torch.bfloat16, Bt, S, H, P, G,
+                                    N, True, seed=S + Bt + 3)
+    rng = np.random.default_rng(S + 3)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda_device)
+    h0, dhf, dy = f(Bt, H, P, N), f(Bt, H, P, N), f(Bt, S, H, P).to(torch.bfloat16)
+    cum = chunk_cumsum(dt, A, chunk)
+    _, chunk_in = ssd_chunk_ref(x, dt, cum, B, C, chunk=chunk)
+    h_ins, _ = pass_states(chunk_in, torch.exp(cum[:, chunk - 1::chunk]), h0)
+    dchunk_in, _, end = state_pass_bwd_ref(chunk_dstate_ref(dy, cum, C, chunk=chunk),
+                                           cum, h_ins, dhf, chunk=chunk)
+    args = (x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in, end)
+    before = dict(LAUNCHES)
+    if head_block == ssd_kernel.BWD_TC_HEAD_BLOCK:
+        got = ssd_bwd_chunk(*args, chunk=chunk)
+    else:
+        got = _ssd_bwd_chunk_tc_at(head_block, *args, chunk)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - before.get(k, 0) for k in
+            ("ssd_bwd_chunk", ssd_kernel.BWD_TC_KERNEL)} == {
+        "ssd_bwd_chunk": 0,
+        ssd_kernel.BWD_TC_KERNEL: int(head_block == ssd_kernel.BWD_TC_HEAD_BLOCK)}
+    assert got[0].dtype == torch.bfloat16
+    *ref, dA_scale = chunk_bwd_ref(*args, chunk=chunk, dA_scale=True)
+    for what, g, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, ref):
+        g, r = _np(g), _np(r)
+        scale = _np(dA_scale) if what == "dA" else np.abs(r).max()
+        tol = TC_BWD_TOL[what]
+        assert g.shape == r.shape and np.isfinite(g).all(), what
+        assert (np.abs(g - r) - tol - tol * scale).max() <= 0, what
+    attrs = ssd_kernel.bwd_attributes(ssd_kernel.BWD_TC_KERNEL, P, N,
+                                      torch.bfloat16)
+    assert attrs["local_bytes"] == 0, attrs
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Bt,S,H,P,G,N,chunk", [
     (1, 80, 4, 16, 2, 16, 32),    # padded to 96 inside ops.ssd
@@ -675,7 +764,8 @@ def test_ssd_function_vs_autograd_on_card(cuda_device, Bt, S, H, P, G, N, chunk,
         torch.cuda.synchronize()
         if impl == "auto":
             fwd = BF16_KERNELS if dtype == torch.bfloat16 else ("ssd_chunk",)
-            assert dict(LAUNCHES) == dict.fromkeys(fwd + ssd_kernel.BWD_KERNELS, 1)
+            assert dict(LAUNCHES) == dict.fromkeys(
+                fwd + ssd_kernel.bwd_kernels(dtype), 1)
     for what, g, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD", "dh0"),
                           *grads.values()):
         assert g.dtype == r.dtype, what
@@ -701,9 +791,11 @@ def test_rglru_function_vs_autograd_on_card(cuda_device):
         np.testing.assert_allclose(_np(g), _np(r), **RGLRU_TOL)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P,N", ssd_kernel.PN_PAIRS)
-@pytest.mark.parametrize("name", ssd_kernel.BWD_KERNELS)
+@pytest.mark.parametrize("name,dtype", [
+    *((name, dtype) for name in ssd_kernel.BWD_KERNELS
+      for dtype in (torch.float32, torch.bfloat16)),
+    (ssd_kernel.BWD_TC_KERNEL, torch.bfloat16)])
 def test_ssd_bwd_kernels_use_no_local_memory(cuda_device, name, P, N, dtype):
     attrs = ssd_kernel.bwd_attributes(name, P, N, dtype)
     assert attrs["local_bytes"] == 0, attrs
@@ -753,7 +845,7 @@ def test_reduced_recurrent_train_step_on_card_matches_cpu(cuda_device, arch):
 FULL_TRAIN = {
     "mamba2-780m": (4, {"ssd_chunk_state": 96, "ssd_state_pass": 96,
                         "ssd_chunk_scan": 96,
-                        **dict.fromkeys(ssd_kernel.BWD_KERNELS, 48)}),
+                        **dict.fromkeys(ssd_kernel.BF16_BWD_KERNELS, 48)}),
     "recurrentgemma-2b": (1, {"rglru_scan": 34, "rglru_scan_bwd": 18,
                               "flash_attn_fwd": 16,
                               **dict.fromkeys(BWD_KERNELS, 8)}),

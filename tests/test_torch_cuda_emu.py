@@ -1,14 +1,16 @@
-"""The CUDA-core kernels' own C++ on the CPU: ``csrc/rglru_scan.cu`` and
-``csrc/ssd_bwd.cu`` built with g++ against ``tools/cuda_emu/cuda_emu.h``
-(one thread per CUDA thread, barriers for ``__syncthreads`` and the warp
-shuffles), called through their ``extern "C"`` entries with CPU tensors, and
-held against their plain versions at small shapes, at the card's
-tolerances (``tests/test_torch_cuda.py``): the RG-LRU kernels to the bit in
-f32 (the same rounded sums and products in the same order) and one bf16
-step in bf16; the SSD backward 1e-4 of each gradient's largest magnitude
-(dA: of the sum of its terms' magnitudes; dchunk_in and dh0 elementwise) in
-f32, 2e-2 with bf16 inputs.  What the emulation cannot show (speed,
-registers, spills, the card's own compiler) ``chip_smoke.py`` shows.
+"""The kernels' own C++ on the CPU: ``csrc/rglru_scan.cu``,
+``csrc/ssd_bwd.cu`` and the tensor-core ``csrc/ssd_bwd_tc.cu`` built with g++
+against ``tools/cuda_emu/cuda_emu.h`` (one thread per CUDA thread, barriers
+for ``__syncthreads`` and the warp shuffles, and for ``ssd_bwd_tc.cu`` its
+cp.async, ldmatrix and mma.sync), called through their ``extern "C"``
+entries with CPU tensors, and held against their plain versions at small
+shapes, at the card's tolerances (``tests/test_torch_cuda.py``): the RG-LRU
+kernels to the bit in f32 (the same rounded sums and products in the same
+order) and one bf16 step in bf16; the SSD backward 1e-4 of each gradient's
+largest magnitude (dA: of the sum of its terms' magnitudes; dchunk_in and
+dh0 elementwise) in f32, 2e-2 with bf16 inputs.  What the emulation cannot
+show (speed, registers, spills, the card's own compiler and its tensor
+cores' own rounding of sums) ``chip_smoke.py`` shows.
 """
 import ctypes
 import shutil
@@ -29,6 +31,16 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "kernels"
 V, I = ctypes.c_void_p, ctypes.c_int
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The bf16 ssd_bwd_chunk's bars (csrc/ssd_bwd_tc.cu), by gradient: dx is
+# written in bf16 (2e-2); ddt, dB, dC and dD are f32 and held at 1e-4, which
+# the hi + lo split of the f32 operands meets and one rounding of them to
+# bf16 misses (tests/test_torch_ssd_scan.py).  dA sums its terms over every
+# row after a reverse cumsum of differences that cancel: at a 256-row chunk
+# with the model's fastest decay the f32 reference is itself 1.1e-4 of the
+# terms' magnitude from an f64 evaluation, and ssd_bwd.cu's all-f32 kernel
+# 2.6e-4 from the reference, so dA is held at 1e-3, above f32's own floor.
+TC_BWD_TOL = {"dx": 2e-2, "ddt": 1e-4, "dA": 1e-3, "dB": 1e-4, "dC": 1e-4,
+              "dD": 1e-4}
 
 
 @pytest.fixture(scope="module")
@@ -38,7 +50,8 @@ def libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("cuda_emu")
     built = {}
     for name, src in (("rglru", CSRC / "rglru_scan/csrc/rglru_scan.cu"),
-                      ("ssd", CSRC / "ssd_scan/csrc/ssd_bwd.cu")):
+                      ("ssd", CSRC / "ssd_scan/csrc/ssd_bwd.cu"),
+                      ("ssd_tc", CSRC / "ssd_scan/csrc/ssd_bwd_tc.cu")):
         lib = out / f"lib{name}.so"
         proc = subprocess.run([sys.executable, str(ROOT / "tools/cuda_emu/build.py"),
                                str(src), str(lib)], capture_output=True, text=True)
@@ -49,6 +62,7 @@ def libs(tmp_path_factory):
     built["ssd"].ssd_bwd_dstate.argtypes = [V] * 4 + [I] * 8 + [V]
     built["ssd"].ssd_bwd_state_pass.argtypes = [V] * 7 + [I] * 6 + [V]
     built["ssd"].ssd_bwd_chunk.argtypes = [V] * 17 + [I] * 9 + [V]
+    built["ssd_tc"].ssd_bwd_chunk_tc.argtypes = [V] * 17 + [I] * 8 + [V]
     return built
 
 
@@ -85,8 +99,8 @@ def test_rglru_kernels_emulated(libs, B, S, R, h0, dhf, dtype):
         assert torch.equal(got, want)
 
 
-def _close(what, got, ref, dtype, scale=None):
-    tol = SSD_TOL[dtype]
+def _close(what, got, ref, dtype, scale=None, tol=None):
+    tol = SSD_TOL[dtype] if tol is None else tol
     got, ref = got.float().numpy(), ref.float().numpy()
     if scale is None:
         scale = np.abs(ref) if what in ("dchunk_in", "dh0") else np.abs(ref).max()
@@ -153,3 +167,51 @@ def test_ssd_bwd_kernels_emulated(libs, Bt, S, H, P, G, N, chunk, hb, dtype):
     assert dx.dtype == dtype
     for what, a, b in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
         _close(what, a, b, dtype, dA_scale if what == "dA" else None)
+
+
+@pytest.mark.parametrize("Bt,S,H,P,G,N,chunk,hb", [
+    (1, 16, 4, 16, 2, 16, 8, 2),      # the reduced configs' (P, N, chunk), G 2
+    (1, 48, 6, 32, 3, 16, 24, 4),     # G 3, a chunk that is not a multiple of 16
+    (2, 10, 2, 16, 1, 32, 5, 1),      # a 5-row chunk
+    (1, 64, 3, 64, 1, 128, 64, 2),    # mamba2-780m's (P, N), a ragged head block
+    (1, 256, 2, 64, 1, 128, 256, 2),  # ... and its 256-row chunk: both rounds
+])
+def test_ssd_bwd_chunk_tensor_cores_emulated(libs, Bt, S, H, P, G, N, chunk, hb):
+    """The bf16 ssd_bwd_chunk (``csrc/ssd_bwd_tc.cu``) against
+    ``chunk_bwd_ref`` from the same inputs (dchunk_in and the chunk-end term
+    from the plain versions, h0 and dh_final given, the model's kind of A),
+    each gradient within TC_BWD_TOL of its largest magnitude (dA: of the sum
+    of its terms' magnitudes); dB and dC written in full by the kernel (no
+    zeroed partials), dx in bf16."""
+    g = torch.Generator().manual_seed(S * H + P)
+    bf = torch.bfloat16
+    x = torch.randn(Bt, S, H, P, generator=g).to(bf)
+    dt = 0.1 + 0.8 * torch.rand(Bt, S, H, generator=g)
+    A = -torch.linspace(1.0, 16.0, H)
+    B = torch.randn(Bt, S, G, N, generator=g).to(bf)
+    C = torch.randn(Bt, S, G, N, generator=g).to(bf)
+    D = torch.randn(H, generator=g)
+    h0, dhf = (torch.randn(Bt, H, P, N, generator=g) for _ in range(2))
+    dy = torch.randn(Bt, S, H, P, generator=g).to(bf)
+    nc = S // chunk
+    cum = chunk_cumsum(dt, A, chunk)
+    _, chunk_in = ssd_chunk_ref(x, dt, cum, B, C, chunk=chunk)
+    h_ins, _ = pass_states(chunk_in, torch.exp(cum[:, chunk - 1::chunk]), h0)
+    dchunk_in, _, end = state_pass_bwd_ref(chunk_dstate_ref(dy, cum, C, chunk=chunk),
+                                           cum, h_ins, dhf, chunk=chunk)
+    nhb = -(-(H // G) // hb)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dB_part, dC_part = (torch.full((nhb, Bt, S, G, N), float("nan")) for _ in range(2))
+    dA_part, dD_part = torch.empty(Bt, nc, H), torch.empty(Bt, nc, H)
+    assert libs["ssd_tc"].ssd_bwd_chunk_tc(
+        *map(_ptr, (x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in, end, dx, ddt,
+                    dB_part, dC_part, dA_part, dD_part)),
+        Bt, S, H, G, P, N, chunk, hb, None) == 0
+    *want, dA_scale = chunk_bwd_ref(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in,
+                                    end, chunk=chunk, dA_scale=True)
+    got = (dx, ddt, dA_part.sum((0, 1)), dB_part.sum(0), dC_part.sum(0),
+           dD_part.sum((0, 1)))
+    assert dx.dtype == bf
+    for what, a, b in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        _close(what, a, b, bf, dA_scale if what == "dA" else None,
+               tol=TC_BWD_TOL[what])

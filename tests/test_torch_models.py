@@ -304,3 +304,37 @@ def test_init_cache_matches_reference(case):
         assert tuple(t.shape) == ref[key].shape
         assert str(t.dtype).split(".")[1] == str(ref[key].dtype)
         assert not t.any()
+
+
+@pytest.mark.parametrize("case", ["qwen3-0.6b", "mamba2-780m", "recurrentgemma-2b"])
+def test_bf16_tree_converts_and_matches_jax(case):
+    """A reference tree made at ``param_dtype="bfloat16"`` (``ml_dtypes``
+    arrays) carries over by its 16-bit pattern, every leaf bf16 with the
+    reference's bits; prefill and one decode step then match the JAX package
+    at the f32 parity tolerance (1e-4): the reduced configs compute in f32,
+    both packages widen the same bf16 weights exactly, and so differ only in
+    the order of f32 sums, as at f32 parameters."""
+    jcfg, tcfg = (dataclasses.replace(c, param_dtype="bfloat16")
+                  for c in _configs(case))
+    jparams = jax.device_get(jax_init_params(jcfg, jax.random.PRNGKey(0)))
+    model = module_from_tree(jparams, tcfg, device="cpu")
+    tflat, jflat = flatten(model.tree()), jax_flatten(jparams)
+    assert set(tflat) == set(jflat)
+    for key, a in jflat.items():
+        assert a.dtype.name == "bfloat16" and tflat[key].dtype == torch.bfloat16
+        np.testing.assert_array_equal(tflat[key].view(torch.int16).numpy(),
+                                      np.asarray(a).view(np.int16), err_msg=key)
+    B, S = 2, 12
+    prompts = np.random.default_rng(5).integers(0, tcfg.vocab, size=(B, S))
+    jlog, jcache = jax.jit(jax_prefill_step(jcfg, cache_len=S + 1))(
+        jparams, {"tokens": jnp.asarray(prompts, jnp.int32)})
+    with torch.inference_mode():
+        tlog, tcache = make_prefill_step(tcfg, cache_len=S + 1)(
+            model, {"tokens": torch.from_numpy(prompts)})
+    _close(tlog, jlog)
+    tok = np.array(jnp.argmax(jlog[:, -1], axis=-1))[:, None]
+    jlog, _ = jax.jit(jax_decode_step(jcfg))(jparams, jcache, jnp.asarray(tok),
+                                             jnp.int32(S))
+    with torch.inference_mode():
+        tlog, _ = make_decode_step(tcfg)(model, tcache, torch.from_numpy(tok), S)
+    _close(tlog, jlog)

@@ -16,6 +16,7 @@ autograd).  Tolerances, with their reasons:
   learning rate, so the bound is 4 Σ lr over the steps taken, absolute.
 """
 import dataclasses
+import json
 import os
 
 import jax
@@ -298,6 +299,41 @@ def test_checkpoints_restore_in_either_package(tmp_path):
         assert jrestored["opt"]["step"].dtype == jnp.int32
     assert sorted(os.listdir(tmp_path / "port")) == [
         "manifest.json", "step-2.npz", "step-3.npz"]
+
+
+def test_bf16_train_state_checkpoints_bit_for_bit(tmp_path):
+    """A train state with bf16 parameters (a reference tree made at
+    ``param_dtype="bfloat16"``, carried over) saves, synchronously and
+    asynchronously, as 16-bit patterns with every key's dtype in the
+    manifest, and restores bit for bit in the same dtypes."""
+    jcfg, tcfg = (dataclasses.replace(c, param_dtype="bfloat16")
+                  for c in _configs("mamba2-780m"))
+    model = module_from_tree(
+        jax.device_get(jax_init_params(jcfg, jax.random.PRNGKey(1))), tcfg,
+        device="cpu")
+    params = model.tree()
+    state = {"params": params, "opt": init_opt_state(params)}
+    state["opt"]["step"] += 5
+    flat = flatten(state)
+    assert {t.dtype for k, t in flat.items() if k.startswith("params/")} == {
+        torch.bfloat16}
+    checkpoint.save_checkpoint(str(tmp_path), state, 1)
+    ckpt = checkpoint.AsyncCheckpointer(str(tmp_path))
+    ckpt.save(state, 2)
+    ckpt.wait()
+    with open(tmp_path / "manifest.json") as f:
+        dtypes = json.load(f)["dtypes"]
+    assert dtypes == {k: str(t.dtype)[6:] for k, t in flat.items()}
+    for step in (1, 2):
+        restored, got_step, _ = checkpoint.restore_checkpoint(
+            str(tmp_path), step=step, device="cpu")
+        got = flatten(restored)
+        assert got_step == step and sorted(got) == sorted(flat)
+        for key, want in flat.items():
+            assert got[key].dtype == want.dtype, key
+            bits = (lambda t: t.view(torch.int16)) if want.dtype == torch.bfloat16 \
+                else (lambda t: t)
+            assert torch.equal(bits(got[key]), bits(want)), key
 
 
 def test_restore_defaults_to_the_card_and_raises_without_one(tmp_path,

@@ -7,7 +7,8 @@ The source's launches (``kernel<<<grid, block, smem, stream>>>(...)``, all
 four arguments written) become calls of ``emu_launch``, its ``extern
 __shared__`` array a pointer into the emulator's buffer; g++ (C++20,
 ``-ffp-contract=off``, so no product is fused into a sum that the card would
-round apart) builds the rest as it stands into a shared library with the
+round apart; the source's own directory on the include path, for its headers)
+builds the rest as it stands into a shared library with the
 same ``extern "C"`` entries, which ctypes loads and calls with CPU tensors'
 ``data_ptr()``.  It takes a few seconds; a run takes one thread per CUDA
 thread, so keep the shapes small.
@@ -35,7 +36,7 @@ def main(argv) -> int:
     cpp.write_text('#include "cuda_emu.h"\n' + text)
     proc = subprocess.run(
         ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-         "-pthread", "-I", str(HERE), "-o", str(out), str(cpp), "-Wall",
+         "-pthread", "-I", str(HERE), "-I", str(src.resolve().parent), "-o", str(out), str(cpp), "-Wall",
          "-Wno-unused-variable", "-Wno-unknown-pragmas", "-Wno-unused-function"],
         capture_output=True, text=True)
     sys.stdout.write(proc.stdout + proc.stderr)

@@ -74,7 +74,9 @@ def build(job):
     src, lib = os.path.join(d, "ssd_bf16.cu"), os.path.join(d, "libssd_bf16.so")
     with open(src, "w") as f:
         f.write(text)
-    proc = subprocess.run([kb._nvcc(), *kb.NVCC_FLAGS, "-o", lib, src],
+    # the copy includes the checked-in source's header (ssd_common.cuh)
+    proc = subprocess.run([kb._nvcc(), *kb.NVCC_FLAGS, "-I", os.path.dirname(SRC),
+                           "-o", lib, src],
                           capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"nvcc failed on variant {i}:\n{proc.stdout}{proc.stderr}")
