@@ -105,6 +105,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -354,6 +355,27 @@ SSD_BWD_SCALED = ("dS", "end", "dx", "ddt", "dA", "dB", "dC", "dD")
 SSD_BWD_GRID = SSD_BF16_GRID + [SSD_SERVE + (True,)]  # the last: training
 SSD_BWD_KERNELS = ("ssd_bwd_dstate", "ssd_bwd_state_pass", "ssd_bwd_chunk")
 SSD_BWD_TC = "ssd_bwd_chunk_tc"  # the bf16 ssd_bwd_chunk's launches
+# The physical mode (``repro_torch.cluster.localcloud``), as
+# examples/train_cluster.py runs it but at full width and depth: Eva's
+# three-type local catalog, the example's jobs (id, workload, model, steps,
+# (gpu, cpu, ram) demand), its 3 s rounds, and the reference worker's batch
+# of 2 x 32 tokens.  Each job's standalone steps/s is measured first, from a
+# solo run of the port's worker (CALIBRATION_STEPS, the first
+# CALIBRATION_WARMUP not timed).
+CLUSTER_TYPES = [("local.large", "c7i", (0, 4, 16), 1.0),
+                 ("local.small", "c7i", (0, 2, 8), 0.55),
+                 ("local.micro", "c7i", (0, 1, 4), 0.30)]
+CLUSTER_JOBS = [(1, 7, "smollm-135m", 40, (0, 1, 4)),
+                (2, 6, "qwen3-0.6b", 40, (0, 1, 4)),
+                (3, 9, "mamba2-780m", 20, (0, 2, 8))]
+CLUSTER_ROUND_S = 3.0
+CLUSTER_TIMEOUT_S = 480
+CALIBRATION_STEPS, CALIBRATION_WARMUP = 10, 2
+# The kernels' shapes there: attention of smollm-135m (9 heads, 3 KV heads)
+# and qwen3-0.6b at 2 x 32; mamba2-780m's SSD at 2 x 32, padded to one
+# 256-row chunk (``ssd_scan/ops.py``), with the model's A.
+CLUSTER_SHAPES = [(2, 32, 9, 3, 64, None, True), (2, 32, 16, 8, 64, None, True)]
+CLUSTER_SSD = (2, 256, 48, 64, 1, 128, 256, True)
 
 # One training step's loss and gradients, kernel path against the plain
 # path (impl="reference": autograd through attention_chunked), in f32
@@ -457,12 +479,14 @@ def excess_error(got, ref, tol: float) -> tuple:
 
 
 def kernel_vs_plain(device) -> dict:
-    """Phase 2; returns the max abs error at each serving shape in bf16."""
+    """Phase 2; returns the max abs error at each serving shape and each
+    physical-mode shape in bf16."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import attention_ref
     errs = {}
-    for i, shape in enumerate(GRID + GRID_HD256 + [SERVE_SHAPE, RG_SERVE_SHAPE]):
+    for i, shape in enumerate(GRID + GRID_HD256 + [SERVE_SHAPE, RG_SERVE_SHAPE]
+                              + CLUSTER_SHAPES):
         for name in ("float32", "bfloat16"):
             q, k, v = qkv(shape, getattr(torch, name), device, seed=i)
             B, S, H, KH, hd, window, causal = shape
@@ -477,7 +501,8 @@ def kernel_vs_plain(device) -> dict:
                   and bool(torch.isfinite(got).all()), "bad kernel output")
             check(excess <= 0, f"kernel disagrees with plain at {shape} {name}")
             errs[shape] = err  # bf16 last: the main paths' case
-    return {shape: errs[shape] for shape in (SERVE_SHAPE, RG_SERVE_SHAPE)}
+    return {shape: errs[shape] for shape in [SERVE_SHAPE, RG_SERVE_SHAPE]
+            + CLUSTER_SHAPES}
 
 
 def ssd_inputs(shape, dtype, device, seed):
@@ -554,7 +579,8 @@ def ssd_bf16_vs_plain(device) -> dict:
     """Phase 2 for the bf16 path: each kernel against its plain version,
     and the whole ``ops.ssd`` against ``ssd_chunked_ref`` with its launches
     (one of each kernel, none of ssd_chunk); returns each kernel's max abs
-    error at the serving shape with the model's A (the main path's case)."""
+    error at the serving shape with the model's A (the main path's case),
+    and under "physical mode" at CLUSTER_SSD."""
     import torch
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.ssd_scan.kernel import (ssd_chunk_scan,
@@ -563,8 +589,9 @@ def ssd_bf16_vs_plain(device) -> dict:
     from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.kernels.ssd_scan.ref import (chunk_cumsum, chunk_scan_ref,
                                                   chunk_state_ref, pass_states)
-    errs = {}
-    cases = SSD_BF16_GRID + [SSD_SERVE + (False,), SSD_SERVE + (True,)]
+    errs, by_case = {}, {}
+    cases = SSD_BF16_GRID + [SSD_SERVE + (False,), SSD_SERVE + (True,),
+                             CLUSTER_SSD]
     for i, shape in enumerate(cases):
         for with_h0 in (True, False):  # h0 None last: the main path's case
             x, dt, A, B, C, D = ssd_inputs(shape, torch.bfloat16, device,
@@ -616,9 +643,14 @@ def ssd_bf16_vs_plain(device) -> dict:
                   f"h0={with_h0}: min cum {cum.min().item():.1f}, max|err| "
                   + ", ".join(line) + f" (tol y {TOL['bfloat16']:g}, cum 0, "
                   f"the rest {SSD_TOL:g}, abs + rel)")
-    return {"ssd_chunk_state": max(errs["cum"], errs["chunk_in"]),
-            "ssd_state_pass": max(errs["h_ins"], errs["h_final"]),
-            "ssd_chunk_scan": errs["y"]}
+            by_case[shape] = dict(errs)  # h0 None last
+
+    def per_kernel(e):
+        return {"ssd_chunk_state": max(e["cum"], e["chunk_in"]),
+                "ssd_state_pass": max(e["h_ins"], e["h_final"]),
+                "ssd_chunk_scan": e["y"]}
+    return {**per_kernel(by_case[SSD_SERVE + (True,)]),
+            "physical mode": per_kernel(by_case[CLUSTER_SSD])}
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple:
@@ -899,7 +931,8 @@ def bwd_kernel_vs_plain(device) -> dict:
     against ``attention_bwd_ref``), over flash_attn_fwd's grid and the
     training shapes, f32 and bf16, the dK/dV kernel split as ``bwd_splits``
     picks; then bf16 over SPLIT_GRID with the parts given.  Returns, by
-    training shape, the max abs errors in bf16 (the main paths' cases)."""
+    training and physical-mode shape, the max abs errors in bf16 (the main
+    paths' cases)."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import (BWD_KERNELS,
                                                             bwd_buffers,
@@ -911,7 +944,8 @@ def bwd_kernel_vs_plain(device) -> dict:
     errs, by_shape = {}, {}
     # (seed, shape, type, parts): a shape's seed is its place in the grid
     cases = [(i, shape, name, None) for i, shape in enumerate(
-        GRID + GRID_HD256 + [TRAIN_SHAPE, RG_TRAIN_SHAPE, RG_TRAIN_SHAPE_B1])
+        GRID + GRID_HD256 + [TRAIN_SHAPE, RG_TRAIN_SHAPE, RG_TRAIN_SHAPE_B1]
+        + CLUSTER_SHAPES)
         for name in ("float32", "bfloat16")]
     cases += [(200 + j, shape, "bfloat16", splits)
               for j, (shape, splits) in enumerate(SPLIT_GRID)]
@@ -948,8 +982,8 @@ def bwd_kernel_vs_plain(device) -> dict:
               f"{bufs['splits']}{'' if splits else ' (bwd_splits)'}: max|err| "
               + ", ".join(line) + f" (tol L {LSE_TOL:g}, D {D_TOL:g}, "
               f"gradients {BWD_TOL[name]:g}, abs + rel)")
-        if splits is None and name == "bfloat16" and shape in (
-                TRAIN_SHAPE, RG_TRAIN_SHAPE, RG_TRAIN_SHAPE_B1):
+        if splits is None and name == "bfloat16" and shape in [
+                TRAIN_SHAPE, RG_TRAIN_SHAPE, RG_TRAIN_SHAPE_B1] + CLUSTER_SHAPES:
             by_shape[shape] = {
                 "lse": errs["lse"], "flash_attn_bwd_pre": errs["delta"],
                 "flash_attn_bwd_dkdv": max(errs["dk"], errs["dv"]),
@@ -1050,9 +1084,11 @@ def ssd_bwd_vs_plain(device) -> dict:
     chunk-end term), over the bf16 path's grid and the training shape (the
     model's A), with and without h0 and dh_final, f32 and bf16 x, B, C, dy,
     each kernel launched once (bf16: the tensor-core ssd_bwd_chunk, counted
-    as ssd_bwd_chunk_tc).  Returns each kernel's max abs error at the
-    training shape, no h0 or dh_final: bf16 (the main path's case), and
-    ssd_bwd_chunk's in f32 (the f32-compute gate's)."""
+    as ssd_bwd_chunk_tc), and at the physical mode's CLUSTER_SSD in bf16.  Returns
+    each kernel's max abs error at the training shape, no h0 or dh_final:
+    bf16 (the main path's case), and ssd_bwd_chunk's in f32 (the
+    f32-compute gate's); under "physical mode" the bf16 errors at
+    CLUSTER_SSD."""
     import torch
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.ssd_scan.kernel import (bwd_kernels, ssd_bwd_chunk,
@@ -1061,11 +1097,16 @@ def ssd_bwd_vs_plain(device) -> dict:
     from repro_torch.kernels.ssd_scan.ref import (chunk_bwd_ref,
                                                   chunk_dstate_ref,
                                                   state_pass_bwd_ref)
-    errs = {}
-    for i, shape in enumerate(SSD_BWD_GRID):
+    errs, by_case = {}, {}
+    for i, shape in enumerate(SSD_BWD_GRID + [CLUSTER_SSD]):
         combos = ((True, True), (False, False)) if shape[1] >= 2048 else \
             ((True, True), (True, False), (False, True), (False, False))
-        for name in ("float32", "bfloat16"):
+        # the physical mode's jobs compute in bf16, so its shape takes the
+        # bf16 kernels alone (in f32 there, kernel and plain each lie up to
+        # 2.5e-4 of dA_scale from float64, past the f32 dA gate's 1e-4:
+        # tools/ssd_bwd_f64.py)
+        for name in ("bfloat16",) if shape == CLUSTER_SSD else \
+                ("float32", "bfloat16"):
             for with_h0, with_dhf in combos:
                 x, dt, A, B, C, D, cum, h_ins, dy, dhf = ssd_bwd_case(
                     shape, getattr(torch, name), device, 800 + i, with_h0,
@@ -1095,7 +1136,7 @@ def ssd_bwd_vs_plain(device) -> dict:
                 line = {w: ssd_bwd_check(w, got[w], ref[w], name, where,
                                          dA_scale if w == "dA" else None)
                         for w in got}
-                errs[name] = line
+                errs[name] = by_case[shape, name] = line
                 print(f"[kernel] ssd backward {name} (Bt,S,H,P,G,N,chunk,model A)="
                       f"{shape} h0={with_h0} dh_final={with_dhf}: min cum "
                       f"{cum.min().item():.1f}, max|err| "
@@ -1105,13 +1146,17 @@ def ssd_bwd_vs_plain(device) -> dict:
                       "relative to the largest |ref|, dA to the sum of its "
                       f"terms' magnitudes, {dA_scale.max().item():.4e})")
                 del got, ref
-    # the last case of each type: the training shape, no h0 or dh_final
+    # the last case of each shape and type: no h0 or dh_final
     grads = ("dx", "ddt", "dA", "dB", "dC", "dD")
-    bf, f32 = errs["bfloat16"], errs["float32"]
-    return {"ssd_bwd_dstate": bf["dS"],
-            "ssd_bwd_state_pass": max(bf["dchunk_in"], bf["dh0"], bf["end"]),
-            SSD_BWD_TC: max(bf[w] for w in grads),
-            "ssd_bwd_chunk_f32": max(f32[w] for w in grads)}
+
+    def per_kernel(bf):
+        return {"ssd_bwd_dstate": bf["dS"],
+                "ssd_bwd_state_pass": max(bf["dchunk_in"], bf["dh0"], bf["end"]),
+                SSD_BWD_TC: max(bf[w] for w in grads)}
+    train = SSD_BWD_GRID[-1]
+    return {**per_kernel(by_case[train, "bfloat16"]),
+            "ssd_bwd_chunk_f32": max(by_case[train, "float32"][w] for w in grads),
+            "physical mode": per_kernel(by_case[CLUSTER_SSD, "bfloat16"])}
 
 
 def functions_vs_autograd(device) -> None:
@@ -1516,6 +1561,148 @@ def train_and_check(device, arch: str) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "stats": stats}
 
+
+
+def cluster_launches(arch: str) -> dict:
+    """A physical-mode job's launches a training step: a dense model's
+    flash forward twice a layer (the step's forward and the recompute) and
+    each flash backward kernel once a layer; mamba2-780m's TRAIN_PATHS
+    (which calibration checks at 2 x 32)."""
+    if arch == "mamba2-780m":
+        return dict(TRAIN_PATHS[arch])
+    from repro_torch.configs import ARCHS
+    n = ARCHS[arch].n_layers
+    return {"flash_attn_fwd": 2 * n, **dict.fromkeys(BWD_KERNEL_NAMES, n)}
+
+
+def cluster_and_check(device) -> dict:
+    """Phase 4's physical mode: ``repro_torch.cluster.localcloud.LocalCloud``
+    runs rounds of ``EvaScheduler`` over CLUSTER_JOBS on the card, full
+    width, each worker on its own CUDA stream.  First each job's solo run
+    (``_Worker`` in a throwaway directory, CALIBRATION_STEPS steps) gives its
+    standalone steps/s and checks its launches a step; then, with the counts
+    set to 0, ``LocalCloud.run``.  Fails unless every job finishes its
+    steps, the bill is positive, no worker raised, and each kernel launched
+    exactly the jobs' steps times their launches a step, no other kernel.
+    Returns the run's numbers and launch counts."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.cluster.localcloud import LocalCloud, LocalJob, _Worker
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import Catalog, EvaScheduler
+    from repro_torch.core.catalog import InstanceType
+    from repro_torch.kernels import LAUNCHES
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="physical-mode-",
+                               dir=os.path.join(ROOT, "build"))
+    try:
+        jobs, solo = [], {}
+        for job_id, workload, arch, steps, demand in CLUSTER_JOBS:
+            per_step = cluster_launches(arch)
+            job = LocalJob(job_id, workload, ARCHS[arch], CALIBRATION_STEPS,
+                           demand)
+            worker = _Worker(job, os.path.join(workdir, f"solo-{job_id}"))
+            LAUNCHES.clear()
+            t = time.perf_counter()
+            worker.start()
+            worker.join()
+            wall = time.perf_counter() - t
+            if worker.error is not None:
+                print(f"[cluster] {arch}'s solo worker raised: "
+                      f"{worker.error!r}")
+            check(worker.error is None and job.done,
+                  f"{arch}'s solo worker did not finish: {worker.error!r}")
+            check(dict(LAUNCHES) == {k: n * CALIBRATION_STEPS
+                                     for k, n in per_step.items()},
+                  f"{arch}'s solo run at 2 x 32 launched {dict(LAUNCHES)}, "
+                  f"expected {per_step} a step")
+            stamps = worker.window[CALIBRATION_WARMUP:]
+            sps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+            solo[arch] = {"standalone_sps": sps, "wall_s": wall,
+                          "launches_per_step": per_step}
+            print(f"[cluster] {arch} solo: {sps:.3f} steps/s over steps "
+                  f"{CALIBRATION_WARMUP + 1}-{CALIBRATION_STEPS} at 2 x 32, "
+                  f"launches a step {per_step}; the run with its init and "
+                  f"checkpoint {wall:.1f} s")
+            shutil.rmtree(os.path.join(workdir, f"solo-{job_id}"))
+            jobs.append(LocalJob(job_id, workload, ARCHS[arch], steps, demand,
+                                 standalone_sps=sps))
+            torch.cuda.empty_cache()
+
+        catalog = Catalog.from_types([InstanceType(*t) for t in CLUSTER_TYPES])
+        sched = EvaScheduler(catalog)
+        cloud = LocalCloud(catalog, sched, jobs, round_s=CLUSTER_ROUND_S,
+                           workdir=os.path.join(workdir, "cloud"))
+        arch_of = {j.job_id: j.arch_cfg.name for j in jobs}
+        rounds, reports = [], []
+        step_round, observe = cloud.step_round, sched.observe_single
+
+        def traced_round(now):  # what each round saw, then the round itself
+            rounds.append({
+                "t_s": now - t0,
+                "steps_per_s": {arch_of[t]: w.throughput()
+                                for t, w in cloud.workers.items()},
+                "instances": [(catalog.types[i["type"]].name,
+                               sorted(arch_of[t] for t in i["tasks"]))
+                              for i in cloud.instances.values()]})
+            step_round(now)
+
+        def traced_observe(workload, colocated, value):
+            reports.append((workload, list(colocated), value))
+            observe(workload, colocated, value)
+
+        cloud.step_round, sched.observe_single = traced_round, traced_observe
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        LAUNCHES.clear()
+        t0 = time.time()
+        try:
+            out = cloud.run(timeout_s=CLUSTER_TIMEOUT_S)
+        except Exception as e:  # run() has stopped the other workers
+            print(f"[cluster] a worker raised: {e!r}")
+            raise
+        wall = time.time() - t0
+        torch.cuda.synchronize(device)
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(device)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    want = collections.Counter()
+    for j in jobs:
+        for k, n in cluster_launches(j.arch_cfg.name).items():
+            want[k] += n * j.total_steps
+    print(f"[cluster] rounds {sched.rounds}, migrations {out['migrations']}, "
+          f"bill ${out['cost']:.6f} ({CLUSTER_ROUND_S} s rounds, billed by "
+          f"uptime at the local catalog's $/h), wall {wall:.1f} s, steps "
+          f"{ {arch_of[t]: n for t, n in out['steps'].items()} }, all_done "
+          f"{out['all_done']}, peak memory {peak} bytes")
+    for r in rounds:
+        print(f"[cluster] round at {r['t_s']:.1f} s: steps/s "
+              + json.dumps({a: round(v, 4) for a, v in r["steps_per_s"].items()})
+              + f", instances {r['instances']}")
+    colocated = {}
+    for j in jobs:
+        seen = [r["steps_per_s"][j.arch_cfg.name] for r in rounds
+                if r["steps_per_s"].get(j.arch_cfg.name, 0) > 0]
+        colocated[j.arch_cfg.name] = seen
+        print(f"[cluster] {j.arch_cfg.name}: solo {j.standalone_sps:.3f} "
+              f"steps/s; under the scheduler {seen} steps/s (a round's 10 s "
+              f"window)")
+    print(f"[cluster] interference reports to the scheduler (workload, "
+          f"co-located workloads, steps/s over solo, capped at 1): {reports}")
+    print(f"[cluster] launches {launches}, expected {dict(want)}")
+    check(out["all_done"] and all(out["steps"][j.job_id] >= j.total_steps
+                                  for j in jobs),
+          f"the physical mode did not finish its jobs: {out}")
+    check(out["cost"] > 0, f"the physical mode billed {out['cost']}")
+    check(launches == dict(want), f"the physical mode launched {launches}, "
+          f"expected {dict(want)}")
+    return {"launches": launches, "solo": solo, "colocated_sps": colocated,
+            "rounds": sched.rounds, "migrations": out["migrations"],
+            "cost": out["cost"], "wall_s": wall, "peak_bytes": peak}
 
 def train_grads(cfg, params, batch, impl: str):
     """One training step's loss and gradient leaves, by flat key."""
@@ -2010,6 +2197,10 @@ def main() -> int:
     bwd_time = bwd_timing(device)
     rg_bwd_time = bwd_timing(device, RG_TRAIN_SHAPE)
     rg1_bwd_time = bwd_timing(device, RG_TRAIN_SHAPE_B1)
+    cluster_fwd_time = {shape: kernel_timing(device, shape)
+                        for shape in CLUSTER_SHAPES}
+    cluster_bwd_time = {shape: bwd_timing(device, shape)
+                        for shape in CLUSTER_SHAPES}
     rglru_bwd_time = rglru_bwd_timing(device)
     ssd_bwd_time = ssd_bwd_timing(device)
     launches = {arch: serve_and_check(device, arch) for arch in PATHS}
@@ -2017,7 +2208,10 @@ def main() -> int:
         key = f"{arch} training"
         launches[key] = train_and_check(device, arch)["launches"]
         launches[key]["f32 compute"] = grad_parity(device, arch)
+    cluster = cluster_and_check(device)
+    launches["physical mode"] = physical = cluster["launches"]
     trained_launches = [n for k, n in launches.items() if k.endswith("training")]
+    trained_launches.append(physical)
 
     flash_shapes = [
         {"shape": list(shape), "path": arch,
@@ -2040,6 +2234,12 @@ def main() -> int:
             "ms": times["flash_attn_bwd_dq"]["whole_backward"]["fwd_ms"],
             "ms_with_lse": times["flash_attn_bwd_dq"]["whole_backward"][
                 "fwd_with_lse_ms"]})
+    # the physical mode's launches are counted over its jobs together
+    # (physical_mode_launches), not a shape at a time
+    flash_shapes += [{
+        "shape": list(shape), "path": f"physical mode ({arch})",
+        "max_abs_err": errs[shape], **cluster_fwd_time[shape]}
+        for shape, (_, _, arch, _, _) in zip(CLUSTER_SHAPES, CLUSTER_JOBS)]
     flash_bwd = [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attn_bwd.cu",
@@ -2064,9 +2264,10 @@ def main() -> int:
                                  "the key tiles; bf16 at hd 16 and 64: tensor "
                                  "cores as dkdv; bf16 at hd 256: eight warps "
                                  "as dkdv; f32: CUDA cores"}[name],
-        # over both training paths that run it; times at qwen3-0.6b's shape,
-        # recurrentgemma-2b's (head_dim 256) under "shapes"
+        # over the training paths and the physical mode; times at
+        # qwen3-0.6b's training shape, the other shapes' under "shapes"
         "launches": sum(n.get(name, 0) for n in trained_launches),
+        "physical_mode_launches": physical.get(name, 0),
         "max_abs_err": bwd_errs[TRAIN_SHAPE][name], **bwd_time[name],
         "shapes": [{"shape": list(shape), "path": "recurrentgemma-2b training",
                     "launches": launched, "max_abs_err": bwd_errs[shape][name],
@@ -2074,7 +2275,11 @@ def main() -> int:
                    for shape, times, launched in (
                        (RG_TRAIN_SHAPE, rg_bwd_time, 0),  # the cell runs batch 1
                        (RG_TRAIN_SHAPE_B1, rg1_bwd_time, launches[
-                           "recurrentgemma-2b training"].get(name, 0)))]}
+                           "recurrentgemma-2b training"].get(name, 0)))] + [
+            {"shape": list(shape), "path": f"physical mode ({arch})",
+             "max_abs_err": bwd_errs[shape][name],
+             **cluster_bwd_time[shape][name]}
+            for shape, (_, _, arch, _, _) in zip(CLUSTER_SHAPES, CLUSTER_JOBS)]}
         for name in BWD_KERNEL_NAMES]
     ssd_bwd = [{
         "name": name, "route": "cuda",
@@ -2116,6 +2321,10 @@ def main() -> int:
         "launches": launches["mamba2-780m training"].get(name, 0),
         "f32_compute_launches":
             launches["mamba2-780m training"]["f32 compute"].get(name, 0),
+        # mamba2-780m's job in the physical mode, at 2 x 32 (padded to one
+        # chunk); its error at CLUSTER_SSD
+        "physical_mode_launches": physical.get(name, 0),
+        "physical_mode_max_abs_err": ssd_bwd_errs["physical mode"].get(name),
         "max_abs_err": ssd_bwd_errs.get(name), **ssd_bwd_time[name]}
         for name in SSD_BWD_KERNELS + (SSD_BWD_TC,)]
     # ssd_bwd_chunk's bf16 error comes from phase 3, its f32 one from phase 2
@@ -2135,8 +2344,12 @@ def main() -> int:
                               "registers; scores and h_in as hi + lo bf16; "
                               "two cp.async stages; y written once)"}[name],
         "launches": launches["mamba2-780m"].get(name, 0),
+        "physical_mode_launches": physical.get(name, 0),
+        "physical_mode_max_abs_err": ssd_bf16_errs["physical mode"][name],
         "max_abs_err": ssd_bf16_errs[name], **ssd_bf16_time[name]}
         for name in ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")]
+    print("[cluster] " + json.dumps({k: v for k, v in cluster.items()
+                                     if k != "launches"}))
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attn_fwd.cu",
@@ -2145,8 +2358,9 @@ def main() -> int:
                   "from swizzled shared memory, two cp.async K/V stages, P in "
                   "registers); f32: CUDA cores",
         # over every path that runs it; times at qwen3-0.6b's shape, each
-        # serving shape's own under "shapes"
+        # other shape's own under "shapes"
         "launches": sum(n.get("flash_attn_fwd", 0) for n in launches.values()),
+        "physical_mode_launches": physical.get("flash_attn_fwd", 0),
         "max_abs_err": max(errs.values()),
         "lse_max_abs_err": bwd_errs[TRAIN_SHAPE]["lse"],
         **timings[SERVE_SHAPE],

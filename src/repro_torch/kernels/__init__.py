@@ -6,8 +6,18 @@
     ops.py     — the dispatch the model calls
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper adds
-one there when it launches its kernel and nowhere else.
+one there, through ``count_launch``, when it launches its kernel and nowhere
+else.  The count is taken under a lock, since several threads may launch at
+once (the workers of ``cluster.localcloud``).
 """
 import collections
+import threading
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Adds one to ``LAUNCHES[name]``; safe across threads."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1

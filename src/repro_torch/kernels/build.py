@@ -5,8 +5,9 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds), compiled for ``sm_90a`` into ``build/repro_torch_kernels/`` at the
 root of the checkout.  A library's file name carries a hash of its sources
 and flags, so an edited source is rebuilt and an unchanged one is not.
-Kernels build on first use, or all at once through ``build_all``, which
-starts one ``nvcc`` per source, all together.  A failed build raises.
+Kernels build on first use (one thread at a time), or all at once through
+``build_all``, which starts one ``nvcc`` per source, all together.  A failed
+build raises.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
@@ -26,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()  # two threads' first use builds once
 
 
 class BuildError(RuntimeError):
@@ -97,10 +100,14 @@ def build_all() -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if need be."""
-    if name not in _LIBS:
-        src = sources()[name]
-        out = _library_path(src)
-        if not out.exists():
-            _build(name, src, out)
-        _LIBS[name] = ctypes.CDLL(str(out))
-    return _LIBS[name]
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        if name not in _LIBS:
+            src = sources()[name]
+            out = _library_path(src)
+            if not out.exists():
+                _build(name, src, out)
+            _LIBS[name] = ctypes.CDLL(str(out))
+        return _LIBS[name]

@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from ..build import load
 from .ref import attention_bwd_ref, attention_ref, lse_ref
 
@@ -151,7 +151,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  int(causal), window or 0, stream)
     if err:
         raise RuntimeError(f"{NAME} launch failed with CUDA error {err}")
-    LAUNCHES[NAME] += 1
+    count_launch(NAME)
     return (o, lse) if return_lse else o
 
 
@@ -266,7 +266,7 @@ def launch_bwd(name: str, bufs: dict, *, causal: bool,
                  stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    count_launch(name)
     if name == "flash_attn_bwd_dkdv" and bufs["splits"] > 1:
         bufs["dk"].copy_(bufs["dk_part"].sum(0))
         bufs["dv"].copy_(bufs["dv_part"].sum(0))

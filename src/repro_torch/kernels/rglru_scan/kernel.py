@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from ..build import load
 from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 
@@ -38,7 +38,7 @@ def _launch(name: str, args, device) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    count_launch(name)
 
 
 def _check(a, u, h0, u_name: str = "u"):

@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from ..build import load
 from .ref import (chunk_bwd_ref, chunk_cumsum, chunk_dstate_ref, chunk_scan_ref,
                   chunk_state_ref, pass_states, ssd_chunk_ref, state_pass_bwd_ref)
@@ -130,7 +130,7 @@ def _launch(name: str, fn, *args, device) -> None:
         err = fn(*args, stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    count_launch(name)
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,

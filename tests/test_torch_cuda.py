@@ -34,7 +34,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.cluster.localcloud import LocalCloud, LocalJob
 from repro_torch.configs import ARCHS
+from repro_torch.core import Catalog, EvaScheduler
+from repro_torch.core.catalog import InstanceType
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.build import load
 from repro_torch.kernels.flash_attention.kernel import (BWD_KERNELS, HEAD_DIMS,
@@ -873,3 +876,27 @@ def test_full_width_train_step_on_card(cuda_device, arch):
         float(metrics["grad_norm"]))
     del params
     torch.cuda.empty_cache()
+
+
+def test_local_cloud_trains_reduced_jobs_on_card(cuda_device, tmp_path):
+    """The physical mode on the card (its default device): Eva schedules two
+    reduced 30-step jobs, each worker on its own stream, to completion, and
+    every step of both runs the flash forward (twice a layer, with the
+    recompute) and each flash backward kernel (once a layer)."""
+    catalog = Catalog.from_types([
+        InstanceType("local.large", "c7i", (0, 4, 16), 1.0),
+        InstanceType("local.small", "c7i", (0, 2, 8), 0.55),
+    ])
+    jobs = [LocalJob(job_id=1, workload=7, arch_cfg=ARCHS["smollm-135m"].reduced(),
+                     total_steps=30, demand=(0, 1, 4), standalone_sps=20.0),
+            LocalJob(job_id=2, workload=6, arch_cfg=ARCHS["qwen3-0.6b"].reduced(),
+                     total_steps=30, demand=(0, 1, 4), standalone_sps=15.0)]
+    cloud = LocalCloud(catalog, EvaScheduler(catalog), jobs, round_s=1.0,
+                       workdir=str(tmp_path))
+    LAUNCHES.clear()
+    out = cloud.run(timeout_s=300)
+    assert out["all_done"], out
+    assert out["cost"] > 0
+    layers = sum(j.arch_cfg.n_layers * j.total_steps for j in jobs)
+    assert dict(LAUNCHES) == {"flash_attn_fwd": 2 * layers,
+                              **dict.fromkeys(BWD_KERNELS, layers)}
