@@ -14,9 +14,11 @@ Phases; any that fails ends the run with a non-zero exit:
      - flash_attn_fwd over the grid of ``tests/test_kernels.py`` plus a
        ragged length, a non-causal case, head_dim 256 (small, ragged and
        windowed, and with a window that bites), cases that straddle the
-       tensor-core kernel's tiles, and both serving shapes (qwen3-0.6b's and
-       recurrentgemma-2b's), each in f32 (the CUDA-core kernel) and bf16
-       (the tensor-core kernel); tolerances f32 2e-5, bf16 8e-3, abs + rel;
+       tensor-core kernel's tiles, the serving shapes (qwen3-0.6b's,
+       recurrentgemma-2b's, granite-moe-3b-a800m's, whisper-medium's
+       decoder's and its encoder's, not causal at 1500 frames), each in
+       f32 (the CUDA-core kernel) and bf16 (the tensor-core kernel);
+       tolerances f32 2e-5, bf16 8e-3, abs + rel;
      - ssd_chunk (the f32 path's CUDA-core kernel) against ``ssd_chunk_ref``
        over the grid of ``tests/test_kernels.py`` and mamba2-780m's serving
        shape (with that test's A and with the model's A), x, B and C in f32
@@ -35,8 +37,9 @@ Phases; any that fails ends the run with a non-zero exit:
        recurrentgemma-2b's serving shape with the model's kind of decay, a
        and u in f32 and in bf16, both outputs (f32 1e-5, bf16 h_seq 8e-3);
      - the flash backward's kernels (flash_attn_bwd_pre, _dkdv, _dq) against
-       ``attention_bwd_ref`` over flash_attn_fwd's grid plus qwen3-0.6b's
-       training shape and recurrentgemma-2b's at batch 1 and 4, f32 and bf16
+       ``attention_bwd_ref`` over flash_attn_fwd's grid plus the training
+       shapes (qwen3-0.6b's, recurrentgemma-2b's at batch 1 and 4,
+       granite-moe-3b-a800m's and whisper-medium's two), f32 and bf16
        (dq, dk, dv 1e-4 and 2e-2; D 1e-5), and the forward's log-sum-exp
        against ``lse_ref`` (1e-5); then bf16 at head_dim 256 with the dK/dV
        kernel's query walk cut into other numbers of parts than
@@ -66,8 +69,10 @@ Phases; any that fails ends the run with a non-zero exit:
      backward (the yardstick) at the training shape, and the forward with
      and without its log-sum-exp, and the same at recurrentgemma-2b's
      training shape (head_dim 256) at batch 4 and at the cell's batch 1,
-     with the dK/dV kernel's parts; rglru_scan_bwd and the SSD backward's
-     kernels at their training shapes, each beside its plain version and its
+     with the dK/dV kernel's parts, and at granite-moe-3b-a800m's and
+     whisper-medium's shapes (the encoder's not causal); rglru_scan_bwd and
+     the SSD backward's kernels at their training shapes, each beside its
+     plain version and its
      bound (ssd_bwd_dstate also beside ``torch.einsum`` of the prescaled dy
      and C, the one PyTorch call that computes its product; the bf16
      ssd_bwd_chunk_tc beside the CUDA-core kernel it replaced on the same
@@ -75,15 +80,19 @@ Phases; any that fails ends the run with a non-zero exit:
      whole SSD backward;
   4. the main paths, each with the launch counts set to 0 just before it and
      read just after: ``repro_torch.launch.serve`` serves 8 requests of
-     full-width qwen3-0.6b, then of full-width mamba2-780m, then of
-     full-width recurrentgemma-2b (random weights from a seed), each with
-     its expected launches per kernel per prefill round and none of any other
+     full-width qwen3-0.6b, then of full-width mamba2-780m, recurrentgemma-2b,
+     granite-moe-3b-a800m and whisper-medium (zero encoder frames, as the
+     launcher feeds them; random weights from a seed), each with its
+     expected launches per kernel per prefill round and none of any other
      kernel; after each, kernel against plain in the model: for qwen3-0.6b
      the logits of one prefill of the same weights; for mamba2-780m every
-     layer's SSD output, and for recurrentgemma-2b every layer's RG-LRU scan
-     and attention output, on the plain path's bf16 activations, then the
-     logits of one prefill in f32 compute (their bf16 logits are printed
-     beside the plain path's own spread, not gated); then
+     layer's SSD output, for recurrentgemma-2b every layer's RG-LRU scan
+     and attention output, for granite-moe-3b-a800m and whisper-medium
+     every self-attention layer's output (and each MoE layer's output on
+     the kernel's attention output, on the tokens whose expert assignments
+     agree, with the share that differs bounded), on the plain path's bf16
+     activations, then the logits of one prefill in f32 compute (their bf16
+     logits are printed beside the plain path's own spread, not gated); then
      ``repro_torch.launch.train`` trains full-width qwen3-0.6b (batch 4 x
      2048, random weights) for a few steps, each step with 56 flash_attn_fwd
      launches (28 layers, and 28 again in the rematerialised recompute) and
@@ -92,12 +101,14 @@ Phases; any that fails ends the run with a non-zero exit:
      model: one step's loss and every gradient leaf in f32 compute (gated),
      every layer's attention backward in bf16 (gated) and the bf16
      gradients end to end (printed, not gated); then the same launcher trains
-     full-width mamba2-780m (batch 4 x 2048) and recurrentgemma-2b (batch
-     1 x 2048, the largest of 1, 2, 4 under 70 GB) for 3 steps each with
-     their launches per step (``TRAIN_PATHS``) and finite losses, and the
-     same gates: one f32-compute step's loss and gradients (batch 1), every
-     layer's SSD, RG-LRU and attention backward in bf16, the bf16 gradients
-     printed;
+     full-width mamba2-780m (batch 4 x 2048), recurrentgemma-2b (batch
+     1 x 2048), granite-moe-3b-a800m and
+     whisper-medium (batch 4 x 2048, its encoder over 1500 zero frames) for
+     3 steps each with their launches per step (``TRAIN_PATHS``) and finite
+     losses, and the same gates: one f32-compute step's loss and gradients
+     (``GRAD_BATCH``), every layer's SSD, RG-LRU and self-attention backward
+     in bf16, the bf16 gradients printed; then Eva's physical mode
+     (``cluster_and_check``);
   5. a JSON line per the kernel table, then the last line
      ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -169,15 +180,29 @@ GRID_HD256 = [  # recurrentgemma-2b's head_dim: small, ragged + windowed, biting
 ]
 SERVE_SHAPE = (4, 2048, 16, 8, 64, None, True)  # qwen3-0.6b prefill attention
 RG_SERVE_SHAPE = (4, 2048, 10, 1, 256, 2048, True)  # recurrentgemma-2b's
+# The self-attention of granite-moe-3b-a800m (24 heads, 8 KV heads) and of
+# whisper-medium's decoder (16 heads, MHA), causal at 2048, and of its
+# encoder, not causal, over the 1500 frames of its audio frontend: a length
+# that is not a multiple of the kernels' tiles.  Each is a training shape as
+# well (batch 4 x 2048, the encoder at 1500).
+GRANITE_SHAPE = (4, 2048, 24, 8, 64, None, True)
+WHISPER_DEC_SHAPE = (4, 2048, 16, 16, 64, None, True)
+ENC_SHAPE = (4, 1500, 16, 16, 64, None, False)
+NEW_SHAPES = [GRANITE_SHAPE, WHISPER_DEC_SHAPE, ENC_SHAPE]
 BATCH, PROMPT = 4, 2048  # the traffic of every served model
 # Each path's kernel launches per prefill round: one per layer of the kind
-# that runs it (recurrentgemma-2b: 8 attention and 18 RG-LRU layers of 26);
-# none of any other kernel.
+# that runs it (recurrentgemma-2b: 8 attention and 18 RG-LRU layers of 26;
+# whisper-medium: 24 encoder and 24 decoder self-attention layers, its
+# cross-attention the plain version as in the reference); none of any other
+# kernel (granite-moe-3b-a800m's experts are PyTorch products, as the
+# reference's are jnp).
 PATHS = {
     "qwen3-0.6b": {"flash_attn_fwd": 28},
     "mamba2-780m": {"ssd_chunk_state": 48, "ssd_state_pass": 48,
                     "ssd_chunk_scan": 48},
     "recurrentgemma-2b": {"flash_attn_fwd": 8, "rglru_scan": 18},
+    "granite-moe-3b-a800m": {"flash_attn_fwd": 32},
+    "whisper-medium": {"flash_attn_fwd": 48},
 }
 
 
@@ -185,6 +210,13 @@ def train_argv(arch: str, steps: int, *extra: str) -> list:
     return ["--arch", arch, "--no-reduced", "--batch", str(TRAIN_CELLS[arch][0]),
             "--seq", str(PROMPT), "--steps", str(steps), "--log-every", "1",
             *extra]
+
+
+def frames(cfg, batch: int, device) -> dict:
+    """The encoder-decoder's input as the launchers feed it: zero frames
+    (``steps.enc_embeds``); nothing for any other config."""
+    from repro_torch.models.steps import enc_embeds
+    return {"enc_embeds": enc_embeds(cfg, batch, device)} if cfg.enc_dec else {}
 
 
 def serve_argv(arch: str) -> list:
@@ -285,13 +317,16 @@ BWD_KERNEL_NAMES = ("flash_attn_bwd_pre", "flash_attn_bwd_dkdv",
                     "flash_attn_bwd_dq")
 TRAIN_SHAPE = (4, 2048, 16, 8, 64, None, True)  # qwen3-0.6b training attention
 # The training cells, (batch, steps) each, at 2048 tokens a row: batch 4 for
-# qwen3-0.6b and mamba2-780m (20.7 GB at its peak); recurrentgemma-2b at
-# batch 1 took 67.4-68.3 GB (NVIDIA H100 80GB HBM3, 700.00 W), so 1 is the
-# largest of 1, 2 and 4 that stays under 70 GB.  qwen3-0.6b's run is
-# followed by a checkpoint and resume, which take the same launcher path for
-# every model.
+# qwen3-0.6b and mamba2-780m (13.7 GB at its peak); recurrentgemma-2b at
+# batch 1, where it took 67.4-68.3 GB while AdamW made whole-leaf
+# temporaries (49.1 GB since it updates a large leaf in slices; larger
+# batches not measured since; NVIDIA H100 80GB HBM3, 700.00 W);
+# granite-moe-3b-a800m (56.9 GB) and whisper-medium (18.2 GB) at batch 4.
+# qwen3-0.6b's run is followed by a checkpoint and resume, which take the
+# same launcher path for every model.
 TRAIN_CELLS = {"qwen3-0.6b": (4, 4), "mamba2-780m": (4, 3),
-               "recurrentgemma-2b": (1, 3)}
+               "recurrentgemma-2b": (1, 3), "granite-moe-3b-a800m": (4, 3),
+               "whisper-medium": (4, 3)}
 # Launches per training step: each superblock's forward runs twice (the
 # step's forward and the rematerialised recompute in the backward), each
 # backward kernel once a layer.  qwen3-0.6b: 28 layers, each one superblock.
@@ -301,6 +336,8 @@ TRAIN_CELLS = {"qwen3-0.6b": (4, 4), "mamba2-780m": (4, 3),
 # flash forwards, 8 of each flash backward.  mamba2-780m's bf16 backward
 # runs the tensor-core ssd_bwd_chunk (counted as ssd_bwd_chunk_tc); its
 # f32-compute gate the CUDA-core one (ssd_bwd_chunk, see grad_parity).
+# granite-moe-3b-a800m: 32 layers; whisper-medium: 24 encoder layers, each
+# rematerialised as the reference's encoder is, and 24 decoder layers.
 TRAIN_PATHS = {
     "qwen3-0.6b": {"flash_attn_fwd": 56, "flash_attn_bwd_pre": 28,
                    "flash_attn_bwd_dkdv": 28, "flash_attn_bwd_dq": 28},
@@ -310,12 +347,19 @@ TRAIN_PATHS = {
     "recurrentgemma-2b": {"rglru_scan": 34, "rglru_scan_bwd": 18,
                           "flash_attn_fwd": 16, "flash_attn_bwd_pre": 8,
                           "flash_attn_bwd_dkdv": 8, "flash_attn_bwd_dq": 8},
+    "granite-moe-3b-a800m": {"flash_attn_fwd": 64, "flash_attn_bwd_pre": 32,
+                             "flash_attn_bwd_dkdv": 32, "flash_attn_bwd_dq": 32},
+    "whisper-medium": {"flash_attn_fwd": 96, "flash_attn_bwd_pre": 48,
+                       "flash_attn_bwd_dkdv": 48, "flash_attn_bwd_dq": 48},
 }
 # The batch of the gradient gates, at full width and depth: qwen3-0.6b's
-# training batch; 1 for the recurrent models, since three f32 gradient sets
-# of recurrentgemma-2b's 2.89 B parameters are 35 GB and the plain SSD path
-# at batch 4 holds (4, 8, 48, 256, 256) f32 score tensors a layer.
-GRAD_BATCH = {"qwen3-0.6b": BATCH, "mamba2-780m": 1, "recurrentgemma-2b": 1}
+# and whisper-medium's training batch; 1 for the recurrent models, since
+# three f32 gradient sets of recurrentgemma-2b's 2.89 B parameters are 35 GB
+# and the plain SSD path at batch 4 holds (4, 8, 48, 256, 256) f32 score
+# tensors a layer; 1 for granite-moe-3b-a800m, whose 3.30 B parameters and
+# three f32 gradient sets take 52.8 GB before any activation.
+GRAD_BATCH = {"qwen3-0.6b": BATCH, "mamba2-780m": 1, "recurrentgemma-2b": 1,
+              "granite-moe-3b-a800m": 1, "whisper-medium": BATCH}
 RG_TRAIN_SHAPE = (4, 2048, 10, 1, 256, 2048, True)  # recurrentgemma-2b's attention
 RG_TRAIN_SHAPE_B1 = (1,) + RG_TRAIN_SHAPE[1:]  # ... at the training cell's batch
 # bf16 head_dim-256 cases with the dK/dV kernel's query walk cut into a
@@ -386,6 +430,21 @@ CLUSTER_SSD = (2, 256, 48, 64, 1, 128, 256, True)
 # have no unit scale), and the plain path's own spread under one f32 ulp of
 # noise in its attention output is printed beside it.
 GRAD_RTOL = 2e-3
+# The mixture of experts in bf16, in the model: each MoE layer's output on
+# the kernel path's attention output against its output on the plain
+# path's, both from the same plain-path activations.  The two inputs differ
+# by the attention output's rounding (one bf16 step here and there, gated
+# per layer at TOL), carried through wo, the residual, RMSNorm and the
+# experts' three products, each rounded to bf16: 2e-2 abs + rel, the bf16
+# bound of tests/test_kernels.py::_tol, on the tokens whose sets of K
+# (expert, kept) assignments agree (the order of a token's K experts, which
+# near-equal gates may swap, moves only the order of its f32 sum).  A token
+# near a tie of its router's probabilities may pick another expert, or lose
+# or win a slot below an expert's capacity; the (token, expert, kept)
+# assignments that one path makes and the other does not are counted, and
+# may be at most MOE_FLIP_SHARE of a layer's B x S x K.
+MOE_TOL = 2e-2
+MOE_FLIP_SHARE = 0.01
 
 
 class SmokeFailure(RuntimeError):
@@ -479,14 +538,15 @@ def excess_error(got, ref, tol: float) -> tuple:
 
 
 def kernel_vs_plain(device) -> dict:
-    """Phase 2; returns the max abs error at each serving shape and each
+    """Phase 2; returns the max abs error at each serving shape (the
+    granite-moe-3b-a800m and whisper-medium shapes last) and each
     physical-mode shape in bf16."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import attention_ref
     errs = {}
     for i, shape in enumerate(GRID + GRID_HD256 + [SERVE_SHAPE, RG_SERVE_SHAPE]
-                              + CLUSTER_SHAPES):
+                              + CLUSTER_SHAPES + NEW_SHAPES):
         for name in ("float32", "bfloat16"):
             q, k, v = qkv(shape, getattr(torch, name), device, seed=i)
             B, S, H, KH, hd, window, causal = shape
@@ -502,7 +562,7 @@ def kernel_vs_plain(device) -> dict:
             check(excess <= 0, f"kernel disagrees with plain at {shape} {name}")
             errs[shape] = err  # bf16 last: the main paths' case
     return {shape: errs[shape] for shape in [SERVE_SHAPE, RG_SERVE_SHAPE]
-            + CLUSTER_SHAPES}
+            + CLUSTER_SHAPES + NEW_SHAPES}
 
 
 def ssd_inputs(shape, dtype, device, seed):
@@ -819,32 +879,32 @@ def attention_bound_ms(shape, dtype_bytes: int, peak_flops: float) -> tuple:
 
 
 def kernel_timing(device, shape) -> dict:
-    """Phase 3 for flash_attn_fwd at a serving shape (bf16, causal; the
-    window, where there is one, does not bite at S = 2048, so SDPA's causal
-    mask computes the same function)."""
+    """Phase 3 for flash_attn_fwd at a serving shape (bf16, causal or not;
+    the window, where there is one, does not bite at S = 2048, so SDPA's
+    causal mask, or none, computes the same function)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (attributes,
                                                             flash_attention_fwd)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     B, S, H, KH, hd, window, causal = shape
-    check(causal and (window is None or window >= S), "SDPA's mask differs")
+    check(window is None or window >= S, "SDPA's mask differs")
     attrs = attributes(hd, torch.bfloat16)
     q, k, v = qkv(shape, torch.bfloat16, device, seed=99)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     out = {
-        "ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=True,
+        "ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal,
                                                   window=window), 20),
-        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True,
+        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=causal,
                                                   window=window), 5),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20),
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 20),
     }
     out["bound_ms"], out["bound_by"] = attention_bound_ms(shape, 2,
                                                           PEAK_BF16_FLOPS)
     out.update(attrs)
     print(f"[timing] flash_attn_fwd at B={B} S={S} H={H} KH={KH} hd={hd} "
-          f"window={window} bf16 causal (tensor cores): "
+          f"window={window} bf16 causal={causal} (tensor cores): "
           + ", ".join(f"{k} {v}" for k, v in out.items()))
     return out
 
@@ -945,7 +1005,7 @@ def bwd_kernel_vs_plain(device) -> dict:
     # (seed, shape, type, parts): a shape's seed is its place in the grid
     cases = [(i, shape, name, None) for i, shape in enumerate(
         GRID + GRID_HD256 + [TRAIN_SHAPE, RG_TRAIN_SHAPE, RG_TRAIN_SHAPE_B1]
-        + CLUSTER_SHAPES)
+        + CLUSTER_SHAPES + NEW_SHAPES)
         for name in ("float32", "bfloat16")]
     cases += [(200 + j, shape, "bfloat16", splits)
               for j, (shape, splits) in enumerate(SPLIT_GRID)]
@@ -983,7 +1043,8 @@ def bwd_kernel_vs_plain(device) -> dict:
               + ", ".join(line) + f" (tol L {LSE_TOL:g}, D {D_TOL:g}, "
               f"gradients {BWD_TOL[name]:g}, abs + rel)")
         if splits is None and name == "bfloat16" and shape in [
-                TRAIN_SHAPE, RG_TRAIN_SHAPE, RG_TRAIN_SHAPE_B1] + CLUSTER_SHAPES:
+                TRAIN_SHAPE, RG_TRAIN_SHAPE, RG_TRAIN_SHAPE_B1] + CLUSTER_SHAPES \
+                + NEW_SHAPES:
             by_shape[shape] = {
                 "lse": errs["lse"], "flash_attn_bwd_pre": errs["delta"],
                 "flash_attn_bwd_dkdv": max(errs["dk"], errs["dv"]),
@@ -1255,9 +1316,9 @@ def attention_bwd_bounds(shape) -> dict:
 
 
 def bwd_timing(device, shape=TRAIN_SHAPE) -> dict:
-    """Phase 3 for the flash backward at a training shape (bf16, causal; a
-    window that does not bite at S, so SDPA's causal mask computes the same
-    function):
+    """Phase 3 for the flash backward at a training shape (bf16, causal or
+    not; a window that does not bite at S, so SDPA's causal mask, or none,
+    computes the same function):
     each kernel with its bound, registers and shared memory (dK/dV with the
     parts ``bwd_splits`` picks, its time including the sum of the parts);
     plain_ms of flash_attn_bwd_pre is rowsum(dO o O) in PyTorch, of the
@@ -1274,20 +1335,21 @@ def bwd_timing(device, shape=TRAIN_SHAPE) -> dict:
         flash_attention_fwd, launch_bwd)
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     B, S, H, KH, hd, window, causal = shape
-    check(causal and (window is None or window >= S), "SDPA's mask differs")
+    check(window is None or window >= S, "SDPA's mask differs")
     q, k, v = qkv(shape, torch.bfloat16, device, seed=97)
     do = torch.randn(q.shape, generator=torch.Generator(device).manual_seed(96),
                      device=device).to(torch.bfloat16)
-    o, lse = flash_attention_fwd(q, k, v, causal=True, window=window,
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
                                  return_lse=True)
     bufs = bwd_buffers(q, k, v, o, lse, do, window=window)
     bounds = attention_bwd_bounds(shape)
     plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
-                                                 window=window), 3, warmup=1)
+                                                 causal=causal, window=window),
+                       3, warmup=1)
     out = {}
     for name in BWD_KERNELS:
         out[name] = {
-            "ms": time_ms(lambda: launch_bwd(name, bufs, causal=True,
+            "ms": time_ms(lambda: launch_bwd(name, bufs, causal=causal,
                                              window=window), 20),
             "plain_ms": time_ms(lambda: (do.float() * o.float()).sum(-1), 20)
             if name == "flash_attn_bwd_pre" else plain_ms,
@@ -1297,26 +1359,28 @@ def bwd_timing(device, shape=TRAIN_SHAPE) -> dict:
         if name == "flash_attn_bwd_dkdv":
             out[name]["splits"] = bufs["splits"]
         print(f"[timing] {name} at B={B} S={S} H={H} KH={KH} hd={hd} bf16 "
-              "causal: " + ", ".join(f"{k} {v}" for k, v in out[name].items()))
+              f"causal={causal}: "
+              + ", ".join(f"{k} {v}" for k, v in out[name].items()))
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                         enable_gqa=True)
     dot = do.transpose(1, 2)
     whole = {
         "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                  window=window), 20),
+                                                  causal=causal, window=window),
+                      20),
         "sum_ms": sum(out[name]["ms"] for name in BWD_KERNELS),
         "plain_ms": plain_ms,
         "library_ms": time_ms(lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True), 20),
-        "fwd_ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=True,
+        "fwd_ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal,
                                                       window=window), 20),
         "fwd_with_lse_ms": time_ms(lambda: flash_attention_fwd(
-            q, k, v, causal=True, window=window, return_lse=True), 20),
+            q, k, v, causal=causal, window=window, return_lse=True), 20),
     }
     whole["bound_ms"], whole["bound_by"] = bounds["whole"]
     print(f"[timing] whole flash backward at B={B} S={S} H={H} KH={KH} hd={hd} "
-          "(ms; sum_ms: its "
+          f"causal={causal} (ms; sum_ms: its "
           "three kernels timed apart; plain_ms: attention_bwd_ref; library_ms: "
           "SDPA's backward alone; fwd_ms and fwd_with_lse_ms: flash_attn_fwd "
           "without and with its log-sum-exp): "
@@ -1711,7 +1775,8 @@ def train_grads(cfg, params, batch, impl: str):
     from repro_torch.models.params import flatten
     from repro_torch.models.steps import chunked_ce_loss
     flat = flatten(params)
-    h, _ = forward(params, cfg, batch["tokens"], mode="train", impl=impl)
+    h, _ = forward(params, cfg, batch["tokens"], mode="train",
+                   enc_embeds=batch.get("enc_embeds"), impl=impl)
     loss = chunked_ce_loss(params, h, batch["labels"], cfg)
     grads = torch.autograd.grad(loss, list(flat.values()))
     return loss.item(), dict(zip(flat, grads))
@@ -1763,7 +1828,9 @@ def attention_both(plain, worst: dict, seen: list):
     backward kernels on the layer's q, k, v and dO and compares their
     gradients with autograd through the plain attention, at the bf16 kernel
     tolerance.  The backward is linear in dO, so both take dO scaled to a
-    largest |dO| of 1, where an absolute tolerance means something."""
+    largest |dO| of 1, where an absolute tolerance means something.  The
+    decoder's cross-attention (queries and keys of other lengths) is the
+    plain version on either path, and passes through."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
                                                             flash_attention_fwd)
@@ -1796,7 +1863,9 @@ def attention_both(plain, worst: dict, seen: list):
             seen.append(q.dtype)
             return (*grads, None, None)
 
-    def both(q, k, v, *, causal, window, impl):
+    def both(q, k, v, *, causal, window=None, impl):
+        if q.shape[1] != k.shape[1]:
+            return plain(q, k, v, causal=causal, window=window, impl=impl)
         return Both.apply(q, k, v, causal, window)
 
     return both
@@ -1943,6 +2012,7 @@ def grad_parity(device, arch: str) -> dict:
                          trainable=True).tree()
     batch = shard_batch(SyntheticTokens(cfg.vocab, GRAD_BATCH[arch], PROMPT)
                         .next_batch(), device)
+    batch.update(frames(cfg, GRAD_BATCH[arch], device))
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     LAUNCHES.clear()
     loss_k, g_k = train_grads(cfg32, params, batch, "auto")
@@ -2017,9 +2087,10 @@ def serve_and_check(device, arch: str) -> dict:
 
     model = init_params(cfg, torch.Generator(device).manual_seed(0))
     prompt = np.random.default_rng(1).integers(0, cfg.vocab, size=(BATCH, PROMPT))
-    batch = {"tokens": torch.from_numpy(prompt).to(device)}
-    if cfg.ssm or "rglru" in cfg.layer_kinds:
-        (ssd_layer_parity if cfg.ssm else hybrid_layer_parity)(cfg, model, batch)
+    batch = {"tokens": torch.from_numpy(prompt).to(device),
+             **frames(cfg, BATCH, device)}
+    if per_layer_gated(cfg):
+        (ssd_layer_parity if cfg.ssm else layer_parity)(cfg, model, batch)
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         LAUNCHES.clear()
         logit_parity(cfg32, model, batch, F32_LOGIT_ATOL, device)
@@ -2053,10 +2124,11 @@ def logit_parity(cfg, model, batch, tol, device) -> None:
     top2 = plain.topk(2, dim=-1).values
     gaps = [round(g, 4) for g in (top2[:, 0] - top2[:, 1]).tolist()]
     floor = ""
-    if cfg.ssm or "rglru" in cfg.layer_kinds:
+    if per_layer_gated(cfg):
         with ulp_noise(cfg):
             noisy = prefill_logits(cfg, model, batch, "reference")
-        term = "SSD term" if cfg.ssm else "RG-LRU scan output"
+        term = "SSD term" if cfg.ssm else "RG-LRU scan output" \
+            if "rglru" in cfg.layer_kinds else "attention output"
         floor = (f", plain vs plain with one f32 ulp of noise in its {term} "
                  f"{(noisy - plain).abs().max().item():.4e}")
     print(f"[parity] {cfg.name} {cfg.compute_dtype} full-width prefill logits, "
@@ -2103,24 +2175,47 @@ def ssd_layer_parity(cfg, model, batch) -> None:
           f"{worst['h_final']:.3e} (tol {SSD_TOL:g})")
 
 
-def hybrid_layer_parity(cfg, model, batch) -> None:
-    """Every RG-LRU layer's scan and every attention layer's output, kernel
-    against plain, from the same inputs: a prefill along the plain path that
-    also runs the kernels at each layer's call and compares.  The scan's
-    kernel is held against its oracle (``impl="sequential"``), its h_seq
-    after the model's cast to the compute dtype."""
+def per_layer_gated(cfg) -> bool:
+    """Whether the model's bf16 logits are printed, not gated, and its
+    kernels are held layer by layer in bf16 and by f32-compute logits
+    instead: every model but qwen3-0.6b (the dense baseline)."""
+    return cfg.ssm or "rglru" in cfg.layer_kinds or cfg.moe or cfg.enc_dec
+
+
+def layer_parity(cfg, model, batch) -> None:
+    """Every RG-LRU layer's scan and every self-attention layer's output
+    (whisper-medium's encoder and decoder alike), kernel against plain from
+    the same inputs: a prefill along the plain path that also runs the
+    kernels at each layer's call and compares.  The scan's kernel is held
+    against its oracle (``impl="sequential"``), its h_seq after the model's
+    cast to the compute dtype; an attention output to one step (TOL).  The
+    decoder's cross-attention is the plain version on either path and
+    passes through.  For a mixture of experts, each MoE layer runs twice
+    from the same plain-path input, once on the plain attention output and
+    once on the kernel's: its outputs are held to MOE_TOL on the tokens
+    whose sets of K (expert, kept) assignments agree, and the assignments
+    that one path makes and the other does not to MOE_FLIP_SHARE of the
+    layer's."""
     import torch
-    from repro_torch.models import layers, rglru
-    plain_scan, plain_attn = rglru.rglru_scan, layers.flash_attention
-    worst = {"h_seq": 0.0, "h_final": 0.0, "attention": 0.0}
-    seen = {"rglru": 0, "attention": 0}
+    from repro_torch.models import layers, lm, moe, rglru
+    plain = (rglru.rglru_scan, layers.flash_attention, lm.block_apply,
+             lm.moe_apply)
+    plain_scan, plain_attn, plain_block, plain_moe = plain
+    worst = {"h_seq": 0.0, "h_final": 0.0, "attention": 0.0, "moe": 0.0}
+    seen = {"rglru": 0, "attention": 0, "moe": 0}
+    flips, kernel_o, runs, second = [], [], [], [False]
     cdt = getattr(torch, cfg.compute_dtype)
 
-    def compare(what, got, ref, tol):
-        err, excess = excess_error(got, ref, tol)
+    def compare(what, got, ref, tol, rows=None):
+        d = (got.float() - ref.float()).abs()
+        excess = d - tol - tol * ref.float().abs()
+        if rows is not None:
+            d, excess = d[rows], excess[rows]
+        err = d.max().item() if d.numel() else 0.0
         check(got.dtype == ref.dtype and bool(torch.isfinite(got).all())
-              and excess <= 0, f"{what} of the kernel path disagrees with plain "
-              f"(max|err| {err:.3e})")
+              and (not excess.numel() or excess.max().item() <= 0),
+              f"{what} of the kernel path disagrees with plain (max|err| "
+              f"{err:.3e})")
         worst[what] = max(worst[what], err)
 
     def scan_both(a, u, h0=None, *, impl):
@@ -2131,27 +2226,80 @@ def hybrid_layer_parity(cfg, model, batch) -> None:
         seen["rglru"] += 1
         return plain_scan(a, u, h0, impl=impl)
 
-    def attn_both(q, k, v, *, causal, window, impl):
+    def attn_both(q, k, v, *, causal, window=None, impl):
+        if q.shape[1] != k.shape[1]:  # cross-attention: the plain version
+            return plain_attn(q, k, v, causal=causal, window=window, impl=impl)
+        if second[0]:  # the MoE layer's run on the kernel's output
+            return kernel_o.pop()
         o_ref = plain_attn(q, k, v, causal=causal, window=window, impl=impl)
         o = plain_attn(q, k, v, causal=causal, window=window, impl="auto")
         compare("attention", o, o_ref, TOL[cfg.compute_dtype])
         seen["attention"] += 1
+        kernel_o.append(o)
         return o_ref
 
-    rglru.rglru_scan, layers.flash_attention = scan_both, attn_both
+    def moe_record(p, h, cfg_):
+        """The layer's output and each token's set of (expert, kept)
+        assignments, as a (B, S, 2E) mask."""
+        y = plain_moe(p, h, cfg_)
+        _, experts = moe.route(p, h, cfg_)
+        kept = moe.positions(experts, cfg_.n_experts) \
+            < moe.capacity(cfg_, h.shape[1])
+        sets = torch.zeros(experts.shape[:2] + (2 * cfg_.n_experts,),
+                           dtype=torch.bool, device=h.device)
+        sets.scatter_(-1, 2 * experts + kept.long(), True)
+        runs.append((y, sets))
+        return y
+
+    def block_both(p, x, cfg_, kind, mode, cache, pos, enc_out, impl):
+        out = plain_block(p, x, cfg_, kind, mode, cache, pos, enc_out, impl)
+        if kind != "moe":
+            kernel_o.clear()
+            return out
+        second[0] = True
+        try:
+            plain_block(p, x, cfg_, kind, mode, cache, pos, enc_out, impl)
+        finally:
+            second[0] = False
+        (y_ref, sets_ref), (y, sets) = runs
+        runs.clear()
+        differ = sets != sets_ref  # (B, S, 2E)
+        made = y.shape[0] * y.shape[1] * cfg_.top_k
+        flips.append(int((differ & sets).sum()))  # made by the kernel path only
+        check(flips[-1] <= MOE_FLIP_SHARE * made,
+              f"MoE layer {seen['moe']}: {flips[-1]} of {made} (token, expert, "
+              "kept) assignments differ between the paths")
+        compare("moe", y, y_ref, MOE_TOL, rows=~differ.any(-1))
+        seen["moe"] += 1
+        return out
+
+    (rglru.rglru_scan, layers.flash_attention, lm.block_apply,
+     lm.moe_apply) = (scan_both, attn_both, block_both, moe_record)
     try:
         prefill_logits(cfg, model, batch, "reference")
     finally:
-        rglru.rglru_scan, layers.flash_attention = plain_scan, plain_attn
-    want = {"rglru": PATHS[cfg.name]["rglru_scan"],
-            "attention": PATHS[cfg.name]["flash_attn_fwd"]}
+        (rglru.rglru_scan, layers.flash_attention, lm.block_apply,
+         lm.moe_apply) = plain
+    want = {"rglru": PATHS[cfg.name].get("rglru_scan", 0),
+            "attention": PATHS[cfg.name]["flash_attn_fwd"],
+            "moe": cfg.n_layers - cfg.first_dense_layers if cfg.moe else 0}
     check(seen == want, f"expected {want} layer calls, saw {seen}")
-    print(f"[parity] {cfg.name} every layer, kernel vs plain on the plain "
-          f"path's {cfg.compute_dtype} activations ({seen}): max|err| RG-LRU "
-          f"h_seq {worst['h_seq']:.3e} after the cast (tol "
-          f"{TOL[cfg.compute_dtype]:g} abs + rel), h_final "
-          f"{worst['h_final']:.3e} (tol {RGLRU_TOL:g}), attention output "
-          f"{worst['attention']:.3e} (tol {TOL[cfg.compute_dtype]:g})")
+    line = (f"[parity] {cfg.name} every layer, kernel vs plain on the plain "
+            f"path's {cfg.compute_dtype} activations ({seen}): max|err| ")
+    if seen["rglru"]:
+        line += (f"RG-LRU h_seq {worst['h_seq']:.3e} after the cast (tol "
+                 f"{TOL[cfg.compute_dtype]:g} abs + rel), h_final "
+                 f"{worst['h_final']:.3e} (tol {RGLRU_TOL:g}), ")
+    line += (f"attention output {worst['attention']:.3e} (tol "
+             f"{TOL[cfg.compute_dtype]:g} abs + rel)")
+    if seen["moe"]:
+        line += (f"; MoE output on the kernel's attention output, tokens whose "
+                 f"assignments agree, {worst['moe']:.3e} (tol {MOE_TOL:g} abs + "
+                 f"rel); (token, expert, kept) assignments of the kernel path "
+                 f"that the plain path does not make, by layer {flips} of "
+                 f"{BATCH * PROMPT * cfg.top_k} (at most {MOE_FLIP_SHARE:g} of "
+                 f"them)")
+    print(line)
 
 
 def main() -> int:
@@ -2186,7 +2334,7 @@ def main() -> int:
     ssd_bf16_errs = ssd_bf16_vs_plain(device)
     rglru_err = rglru_kernel_vs_plain(device)
     timings = {shape: kernel_timing(device, shape)
-               for shape in (SERVE_SHAPE, RG_SERVE_SHAPE)}
+               for shape in [SERVE_SHAPE, RG_SERVE_SHAPE] + NEW_SHAPES}
     ssd_time = ssd_timing(device)
     ssd_bf16_time = ssd_bf16_timing(device)
     rglru_time = rglru_timing(device)
@@ -2197,6 +2345,7 @@ def main() -> int:
     bwd_time = bwd_timing(device)
     rg_bwd_time = bwd_timing(device, RG_TRAIN_SHAPE)
     rg1_bwd_time = bwd_timing(device, RG_TRAIN_SHAPE_B1)
+    new_bwd_time = {shape: bwd_timing(device, shape) for shape in NEW_SHAPES}
     cluster_fwd_time = {shape: kernel_timing(device, shape)
                         for shape in CLUSTER_SHAPES}
     cluster_bwd_time = {shape: bwd_timing(device, shape)
@@ -2234,6 +2383,21 @@ def main() -> int:
             "ms": times["flash_attn_bwd_dq"]["whole_backward"]["fwd_ms"],
             "ms_with_lse": times["flash_attn_bwd_dq"]["whole_backward"][
                 "fwd_with_lse_ms"]})
+    # granite-moe-3b-a800m's attention runs at one shape; whisper-medium's
+    # at two, whose launches are counted together, over each path's run
+    for shape, arch, part in ((GRANITE_SHAPE, "granite-moe-3b-a800m", ""),
+                              (WHISPER_DEC_SHAPE, "whisper-medium", " decoder"),
+                              (ENC_SHAPE, "whisper-medium", " encoder")):
+        entry = {"shape": list(shape), "path": arch + part,
+                 "launches": launches[arch]["flash_attn_fwd"],
+                 "training_launches":
+                     launches[f"{arch} training"]["flash_attn_fwd"],
+                 "max_abs_err": errs[shape], **timings[shape],
+                 "ms_with_lse": new_bwd_time[shape]["flash_attn_bwd_dq"][
+                     "whole_backward"]["fwd_with_lse_ms"]}
+        if part:
+            entry["launches_cover"] = "the encoder and decoder shapes together"
+        flash_shapes.append(entry)
     # the physical mode's launches are counted over its jobs together
     # (physical_mode_launches), not a shape at a time
     flash_shapes += [{
@@ -2276,6 +2440,14 @@ def main() -> int:
                        (RG_TRAIN_SHAPE, rg_bwd_time, 0),  # the cell runs batch 1
                        (RG_TRAIN_SHAPE_B1, rg1_bwd_time, launches[
                            "recurrentgemma-2b training"].get(name, 0)))] + [
+            {"shape": list(shape), "path": f"{arch} training",
+             "launches": launches[f"{arch} training"].get(name, 0),
+             **({"launches_cover": "the encoder and decoder shapes together"}
+                if arch == "whisper-medium" else {}),
+             "max_abs_err": bwd_errs[shape][name], **new_bwd_time[shape][name]}
+            for shape, arch in ((GRANITE_SHAPE, "granite-moe-3b-a800m"),
+                                (WHISPER_DEC_SHAPE, "whisper-medium"),
+                                (ENC_SHAPE, "whisper-medium"))] + [
             {"shape": list(shape), "path": f"physical mode ({arch})",
              "max_abs_err": bwd_errs[shape][name],
              **cluster_bwd_time[shape][name]}

@@ -2,11 +2,14 @@
 (``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium --no-reduced
 
 Serves synthetic requests: each round admits up to --batch requests,
 prefills them together, then decodes all sequences in lockstep until the
-longest is done (length sampled per request).  Runs on ``cuda`` unless
-``--device cpu`` is given; without a card it raises rather than fall back.
+longest is done (length sampled per request).  An encoder-decoder config
+(whisper-medium) is fed zero encoder frames, as the reference feeds them.
+Runs on ``cuda`` unless ``--device cpu`` is given; without a card it raises
+rather than fall back.
 ``--no-reduced`` serves the published width (the reference's flag could not
 be turned off).
 """
@@ -21,7 +24,7 @@ import torch
 from .. import resolve_device
 from ..configs import ARCHS
 from ..models.lm import init_params
-from ..models.steps import make_decode_step, make_prefill_step
+from ..models.steps import enc_embeds, make_decode_step, make_prefill_step
 
 
 def _sync(device: torch.device) -> None:
@@ -59,9 +62,11 @@ def main(argv=None):
             n = min(args.batch, args.requests - done)
             prompts = rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len))
             lengths = rng.integers(4, args.max_new + 1, size=args.batch)
-            tokens = torch.from_numpy(prompts).to(device)
+            batch = {"tokens": torch.from_numpy(prompts).to(device)}
+            if cfg.enc_dec:  # the audio frontend is a stub: zero frames
+                batch["enc_embeds"] = enc_embeds(cfg, args.batch, device)
             t = time.perf_counter()
-            logits, cache = prefill(model, {"tokens": tokens})
+            logits, cache = prefill(model, batch)
             tok = logits[:, -1].argmax(dim=-1)[:, None]
             _sync(device)
             prefill_s += time.perf_counter() - t

@@ -2,10 +2,12 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --no-reduced --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m --no-reduced --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m --no-reduced --batch 4 --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 20
 
-Trains an LM (dense, Mamba2 or RG-LRU hybrid) on deterministic synthetic
-tokens with AdamW, periodic
+Trains an LM (dense, mixture of experts, Mamba2, RG-LRU hybrid or
+encoder-decoder, the last fed zero encoder frames as in the reference) on
+deterministic synthetic tokens with AdamW, periodic
 asynchronous checkpoints and restart-resume (a resumed run replays the data
 stream from the saved step).  Runs on ``cuda`` unless ``--device cpu`` is
 given; without a card it raises rather than fall back.  ``--reduced``
@@ -27,7 +29,7 @@ from ..configs import ARCHS
 from ..data.pipeline import SyntheticTokens, shard_batch
 from ..kernels import LAUNCHES
 from ..models import lm
-from ..models.steps import init_train_state, make_train_step
+from ..models.steps import enc_embeds, init_train_state, make_train_step
 from ..train.checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
 from ..train.optimizer import OptConfig
 
@@ -88,6 +90,8 @@ def main(argv=None):
         t = time.perf_counter()
         before = collections.Counter(LAUNCHES)
         batch = shard_batch(src.next_batch(), device)
+        if cfg.enc_dec:
+            batch["enc_embeds"] = enc_embeds(cfg, args.batch, device)
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])  # waits for the step
         _sync(device)

@@ -1,6 +1,7 @@
-"""Dense transformer layers (the dense subset of ``repro/models/layers.py``):
-norms, RoPE, GQA self-attention (qk-norm, bias, KV cache), gated MLP, and
-the depthwise causal conv of the recurrent blocks.
+"""Transformer layers (``repro/models/layers.py``): norms, RoPE and the
+sinusoidal position embedding, GQA self-attention (qk-norm, bias, KV cache),
+cross-attention, gated MLP, and the depthwise causal conv of the recurrent
+blocks.
 
 Layers are plain functions on tensors; ``p`` is a dict of parameter tensors.
 Without a device mesh there is nothing to constrain, so ``constrain`` has no
@@ -43,6 +44,15 @@ def rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_embedding(positions, d_model: int):
+    """(..., d_model) f32: sin then cos of positions times 10000^(-i/half)."""
+    half = d_model // 2
+    freqs = torch.pow(10000.0, -torch.arange(half, dtype=torch.float32,
+                                             device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------- attention
@@ -152,6 +162,25 @@ def attention_decode(p, x, cfg: ArchConfig, cache, pos: int, *,
                         q_positions=posv, k_positions=cache["pos"],
                         impl="reference")
     return _out_proj(p, o, x.dtype), cache
+
+
+def cross_attention(p, x, cfg: ArchConfig, enc_kv=None, enc_out=None):
+    """Decoder cross-attention: K/V from the encoder's output (train and
+    prefill) or from the cache (decode).  Sq differs from Sk, so it takes
+    the plain attention, as in the reference; no RoPE, and of the biases
+    only bq and bv.  Returns (y, (k, v))."""
+    if enc_kv is None:
+        k = torch.einsum("btd,dhk->bthk", enc_out, p["wk"].to(enc_out.dtype))
+        v = torch.einsum("btd,dhk->bthk", enc_out, p["wv"].to(enc_out.dtype))
+        if "bv" in p:
+            v = v + p["bv"].to(v.dtype)
+        enc_kv = (k, v)
+    k, v = enc_kv
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+    o = flash_attention(q, k, v, causal=False, impl="reference")
+    return _out_proj(p, o, x.dtype), enc_kv
 
 
 # -------------------------------------------------------------------- conv

@@ -1,4 +1,5 @@
-"""Model assembly for the dense decoder LM (``repro/models/lm.py``).
+"""Model assembly for every architecture of the reference
+(``repro/models/lm.py``).
 
 Layers are grouped into *superblocks* (one period of the temporal pattern —
 a single layer for uniform stacks) whose parameters are stacked along a
@@ -7,12 +8,14 @@ loop here.  Decode caches are stacked along the same dimension.
 
 Modes: "train" (full sequence, no cache; each superblock rematerialised in
 the backward when ``cfg.remat``), "prefill" (full sequence, returns the
-cache) and "decode" (one token against the cache, updated in place).  Dense
-(attention), Mamba2 (ssm) and RG-LRU (rglru) blocks are ported for all three
-modes, with the layers before and after the stack (``dec/pre{i}``,
-``dec/tail{i}``).  ``model_defs`` covers every architecture, so parameter
-counts hold for all of them; the blocks of the other families raise
-``NotImplementedError`` until their slice of the port.
+cache) and "decode" (one token against the cache, updated in place).  The
+block kinds are dense attention ("dense", "attn"), mixture of experts
+("moe"), Mamba2 ("ssm"), RG-LRU ("rglru"), and the encoder-decoder's
+non-causal encoder layer ("enc") and decoder layer with cross-attention
+("xdense"), with the layers before and after the stack (``dec/pre{i}``,
+``dec/tail{i}``).  An encoder-decoder config runs its encoder stack over
+``enc_embeds`` in train and prefill; decode reads the encoder's K/V from
+the cache that prefill wrote.
 """
 from __future__ import annotations
 
@@ -24,20 +27,14 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from .layers import (attn_cache_defs, attn_defs, attention_decode,
-                     attention_full_seq, attention_prefill_cache, mlp_apply,
-                     mlp_defs, norm_defs, rmsnorm)
-from .moe import moe_defs
+                     attention_full_seq, attention_prefill_cache,
+                     cross_attention, mlp_apply, mlp_defs, norm_defs, rmsnorm,
+                     sinusoidal_embedding)
+from .moe import moe_apply, moe_defs
 from .params import (ParamDef, count_params, flatten, init_tree, map_defs,
                      stack_defs, unflatten)
 from .rglru import rglru_block, rglru_cache_defs, rglru_defs
 from .ssm import ssm_block, ssm_cache_defs, ssm_defs
-
-# block kinds whose forward has not been ported, and the slice that brings it
-NOT_PORTED = {
-    "moe": "a later slice (mixture of experts)",
-    "xdense": "a later slice (encoder-decoder)",
-}
-
 
 # --------------------------------------------------------------- structure
 def layer_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
@@ -58,14 +55,6 @@ def structure(cfg: ArchConfig):
     if any(k != rest[0] for k in rest):
         raise ValueError("non-pattern stack must be uniform")
     return pre, (rest[0],), len(rest), ()
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    for kind in layer_kinds(cfg):
-        if kind in NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: {kind} blocks are not ported yet; they come "
-                f"with {NOT_PORTED[kind]}")
 
 
 def block_defs(cfg: ArchConfig, kind: str, d_ff_override: Optional[int] = None):
@@ -114,13 +103,17 @@ def block_cache_defs(cfg: ArchConfig, kind: str, batch: int, ctx: int):
         return ssm_cache_defs(cfg, batch)
     if kind == "rglru":
         return rglru_cache_defs(cfg, batch)
-    return attn_cache_defs(cfg, batch, ctx)
+    d = attn_cache_defs(cfg, batch, ctx)
+    if kind == "xdense":  # the encoder's K/V, written by prefill
+        KH, hd = cfg.n_kv_heads, cfg.hd
+        d["xk"] = ParamDef((batch, cfg.enc_seq, KH, hd), init="zeros")
+        d["xv"] = ParamDef((batch, cfg.enc_seq, KH, hd), init="zeros")
+    return d
 
 
 def cache_defs(cfg: ArchConfig, batch: int, ctx: int):
     """Decode cache: ``dec/pre{i}``, the stacked ``dec/stack/b{j}`` and
     ``dec/tail{i}``, as in the reference."""
-    _check_ported(cfg)
     pre, sb_kinds, n_super, tail = structure(cfg)
     dec = {f"pre{i}": block_cache_defs(cfg, k, batch, ctx)
            for i, k in enumerate(pre)}
@@ -170,12 +163,12 @@ def init_cache(cfg: ArchConfig, batch: int, ctx: int, device):
 
 # ------------------------------------------------------------------ blocks
 def block_apply(p, x, cfg: ArchConfig, kind: str, mode: str, cache, pos,
-                impl: str):
+                enc_out, impl: str):
     """Returns (x, cache_out).  In prefill ``cache`` is the cache capacity
     (which a recurrent block does not need); in decode it is this layer's
-    cache, updated in place; in train there is none, and cache_out is None."""
-    if kind in NOT_PORTED:
-        raise NotImplementedError(f"{kind} blocks come with {NOT_PORTED[kind]}")
+    cache, updated in place; in train there is none, and cache_out is None.
+    ``enc_out`` is the encoder's output, which an "xdense" block attends to
+    in train and prefill."""
     if kind == "ssm":
         h, cache_out = ssm_block(p["ssm"], rmsnorm(x, p["ln1"], cfg.norm_eps),
                                  cfg, mode, cache if mode == "decode" else None,
@@ -194,14 +187,26 @@ def block_apply(p, x, cfg: ArchConfig, kind: str, mode: str, cache, pos,
     if mode == "decode":
         ao, cache_out = attention_decode(p["attn"], h, cfg, cache, pos,
                                          window=window)
-    else:  # decoder self-attention is causal; the encoder kind waits
-        ao, kv = attention_full_seq(p["attn"], h, cfg, causal=True,
+    else:  # the encoder's self-attention is not causal
+        ao, kv = attention_full_seq(p["attn"], h, cfg, causal=kind != "enc",
                                     window=window, impl=impl)
         cache_out = attention_prefill_cache(kv[0], kv[1], cfg, cache) \
             if mode == "prefill" else None
     x = x + ao
-    x = x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
-    return x, cache_out
+    if kind == "xdense":
+        h = rmsnorm(x, p["lnx"], cfg.norm_eps)
+        if mode == "decode":  # the cache holds xk and xv already
+            xo, _ = cross_attention(p["xattn"], h, cfg,
+                                    enc_kv=(cache["xk"], cache["xv"]))
+        else:
+            xo, enc_kv = cross_attention(p["xattn"], h, cfg, enc_out=enc_out)
+            if mode == "prefill":
+                cache_out["xk"], cache_out["xv"] = enc_kv
+        x = x + xo
+    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if kind == "moe":
+        return x + moe_apply(p["moe"], h, cfg), cache_out
+    return x + mlp_apply(p["mlp"], h, cfg), cache_out
 
 
 def _layer(tree, i: int):
@@ -230,18 +235,56 @@ def _stack(trees):
 
 
 # ----------------------------------------------------------------- forward
+def encode(params, cfg: ArchConfig, enc_embeds, mode: str, impl: str):
+    """The encoder stack over ``enc_embeds`` (B, T_enc, D), frames from the
+    stubbed frontend: the sinusoid added, non-causal self-attention, each
+    layer rematerialised in train when ``cfg.remat``, then ``enc_norm``."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    e = enc_embeds.to(cdt)
+    pos = torch.arange(e.shape[1], device=e.device)
+    e = e + sinusoidal_embedding(pos, cfg.d_model).to(cdt)
+    stack = params["enc"]["stack"]
+    n = cfg.n_enc_layers
+
+    def layer(e, p_i):
+        return block_apply(p_i["b0"], e, cfg, "enc", "train", None, None,
+                           None, impl)[0]
+
+    if mode == "train":
+        for p_i in _unstack(stack, n):
+            e = torch.utils.checkpoint.checkpoint(
+                layer, e, p_i, use_reentrant=False) if cfg.remat \
+                else layer(e, p_i)
+    else:
+        for i in range(n):
+            e = layer(e, _layer(stack, i))
+    return rmsnorm(e, params["enc_norm"], cfg.norm_eps)
+
+
 def forward(params, cfg: ArchConfig, tokens, *, mode: str, cache=None,
-            pos: Optional[int] = None, impl: str = "auto", cache_len=None):
+            pos: Optional[int] = None, enc_embeds=None, impl: str = "auto",
+            cache_len=None):
     """Returns (hidden (B, S, D), cache); the cache is None in train.
 
     tokens: (B, S) integer (S == 1 for decode); pos: decode position;
-    cache: from ``init_cache`` or a prefill, updated in place by decode."""
+    cache: from ``init_cache`` or a prefill, updated in place by decode;
+    enc_embeds: (B, T_enc, D) frontend features of an encoder-decoder
+    config, taken in train and prefill."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: the port runs (train, prefill, decode)")
-    _check_ported(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     pre, sb_kinds, n_super, tail = structure(cfg)
+    enc_out = None
+    if cfg.enc_dec and mode != "decode":
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: {mode} needs "
+                             "enc_embeds")
+        enc_out = encode(params, cfg, enc_embeds, mode, impl)
     x = params["embed"][tokens].to(cdt)
+    if cfg.rope_theta == 0.0:  # absolute sinusoidal positions (whisper)
+        at = torch.full((1,), pos, device=x.device) if mode == "decode" \
+            else torch.arange(x.shape[1], device=x.device)
+        x = x + sinusoidal_embedding(at, cfg.d_model).to(cdt)
     ctx = (cache_len or tokens.shape[1]) if mode == "prefill" else None
     dec_p = params["dec"]
     dec_c = cache["dec"] if mode == "decode" else None
@@ -254,16 +297,17 @@ def forward(params, cfg: ArchConfig, tokens, *, mode: str, cache=None,
     for i, kind in enumerate(pre):
         name = f"pre{i}"
         x, new_cache[name] = block_apply(dec_p[name], x, cfg, kind, mode,
-                                         cache_in(dec_c, name), pos, impl)
+                                         cache_in(dec_c, name), pos, enc_out,
+                                         impl)
 
     stack_p = _unstack(dec_p["stack"], n_super) if mode == "train" else None
 
-    def superblock(x, i: int):
+    def superblock(x, i: int, enc_out):
         """Superblock ``i`` of the stack in train mode."""
         p_i = stack_p[i]
         for j, kind in enumerate(sb_kinds):
             x, _ = block_apply(p_i[f"b{j}"], x, cfg, kind, mode, None, None,
-                               impl)
+                               enc_out, impl)
         return x
 
     for i in range(n_super):
@@ -271,8 +315,8 @@ def forward(params, cfg: ArchConfig, tokens, *, mode: str, cache=None,
             # the reference's jax.checkpoint(body): only x is kept between
             # superblocks, the rest is recomputed in the backward
             x = torch.utils.checkpoint.checkpoint(
-                superblock, x, i, use_reentrant=False) \
-                if cfg.remat else superblock(x, i)
+                superblock, x, i, enc_out, use_reentrant=False) \
+                if cfg.remat else superblock(x, i, enc_out)
             continue
         p_i = _layer(dec_p["stack"], i)
         c_i = _layer(dec_c["stack"], i) if mode == "decode" else None
@@ -280,12 +324,13 @@ def forward(params, cfg: ArchConfig, tokens, *, mode: str, cache=None,
         for j, kind in enumerate(sb_kinds):
             name = f"b{j}"
             x, co[name] = block_apply(p_i[name], x, cfg, kind, mode,
-                                      cache_in(c_i, name), pos, impl)
+                                      cache_in(c_i, name), pos, enc_out, impl)
         layer_caches.append(co)
     for i, kind in enumerate(tail):
         name = f"tail{i}"
         x, new_cache[name] = block_apply(dec_p[name], x, cfg, kind, mode,
-                                         cache_in(dec_c, name), pos, impl)
+                                         cache_in(dec_c, name), pos, enc_out,
+                                         impl)
     if mode == "prefill":  # decode updated ``cache`` in place
         new_cache["stack"] = _stack(layer_caches)
         cache = {"dec": new_cache}

@@ -53,7 +53,8 @@ def make_train_step(cfg: ArchConfig, oc: Optional[OptConfig] = None,
         flat = flatten(params)
         for p in flat.values():  # a restored state holds plain tensors
             p.requires_grad_(True)
-        h, _ = forward(params, cfg, batch["tokens"], mode="train", impl=impl)
+        h, _ = forward(params, cfg, batch["tokens"], mode="train",
+                       enc_embeds=batch.get("enc_embeds"), impl=impl)
         loss = chunked_ce_loss(params, h, batch["labels"], cfg)
         grads = torch.autograd.grad(loss, list(flat.values()),
                                     allow_unused=True, materialize_grads=True)
@@ -72,7 +73,8 @@ def make_prefill_step(cfg: ArchConfig, impl: str = "auto", cache_len=None):
     def prefill_step(model: LM, batch):
         params = model.tree()
         h, cache = forward(params, cfg, batch["tokens"], mode="prefill",
-                           impl=impl, cache_len=cache_len)
+                           enc_embeds=batch.get("enc_embeds"), impl=impl,
+                           cache_len=cache_len)
         return logits_from_hidden(params, h[:, -1:], cfg), cache
 
     return prefill_step
@@ -87,6 +89,14 @@ def make_decode_step(cfg: ArchConfig, impl: str = "auto"):
         return logits_from_hidden(params, h, cfg), cache
 
     return decode_step
+
+
+def enc_embeds(cfg: ArchConfig, batch: int, device) -> torch.Tensor:
+    """An encoder-decoder's input frames as the reference's launchers feed
+    them (the audio frontend is a stub): zeros of (batch, enc_seq, d_model)
+    in the compute dtype."""
+    return torch.zeros((batch, cfg.enc_seq, cfg.d_model), device=device,
+                       dtype=getattr(torch, cfg.compute_dtype))
 
 
 def init_train_state(cfg: ArchConfig, generator: torch.Generator):

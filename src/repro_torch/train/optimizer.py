@@ -6,7 +6,12 @@ per-layer norm scales, (n_layers, D), are decayed as in the reference).
 
 The reference returns new arrays; the port writes the new parameters and
 moments into the old tensors in place, so a step holds no second copy of
-them, and returns the same dicts.
+them, and returns the same dicts.  XLA fuses the reference's update into
+one pass; PyTorch makes each operation's f32 temporary whole, about eight
+of them alive at once, which for one of granite-moe-3b-a800m's 4 GB expert
+stacks is 30 GB beside its 52.8 GB of state.  So a large leaf is updated in
+slices along its first dimension, ``SLICE_ELEMENTS`` at most at a time;
+each element's arithmetic is the same, so the result is too, bit for bit.
 """
 from __future__ import annotations
 
@@ -29,6 +34,18 @@ class OptConfig:
     warmup_steps: int = 100
     total_steps: int = 10000
     min_lr_frac: float = 0.1
+
+
+SLICE_ELEMENTS = 1 << 24  # 64 MB of f32 a temporary
+
+
+def _slices(t: torch.Tensor):
+    """Index ranges along dim 0 of at most SLICE_ELEMENTS elements (one
+    row if a row is larger); the whole tensor if it is a scalar."""
+    if t.ndim == 0 or t.numel() <= SLICE_ELEMENTS:
+        return [slice(None)]
+    rows = max(1, SLICE_ELEMENTS // (t.numel() // t.shape[0]))
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
 
 
 def lr_at(step, oc: OptConfig) -> torch.Tensor:
@@ -67,16 +84,18 @@ def adamw_update(params, grads, opt_state, oc: OptConfig):
     c2 = 1.0 - oc.b2 ** step.float()
     flat_g = flatten(grads)
     flat_m, flat_v = flatten(opt_state["m"]), flatten(opt_state["v"])
-    for key, p in flatten(params).items():
-        g = flat_g[key].float() * scale
-        m = oc.b1 * flat_m[key].float() + (1 - oc.b1) * g
-        v = oc.b2 * flat_v[key].float() + (1 - oc.b2) * g * g
-        mhat = m / c1
-        vhat = v / c2
-        delta = mhat / (torch.sqrt(vhat) + oc.eps)
-        if p.ndim >= 2:  # decoupled weight decay on matrices only
-            delta = delta + oc.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        flat_m[key].copy_(m)
-        flat_v[key].copy_(v)
+    for key, leaf in flatten(params).items():
+        for sl in _slices(leaf):
+            p = leaf[sl]
+            g = flat_g[key][sl].float() * scale
+            m = oc.b1 * flat_m[key][sl].float() + (1 - oc.b1) * g
+            v = oc.b2 * flat_v[key][sl].float() + (1 - oc.b2) * g * g
+            mhat = m / c1
+            vhat = v / c2
+            delta = mhat / (torch.sqrt(vhat) + oc.eps)
+            if leaf.ndim >= 2:  # decoupled weight decay on matrices only
+                delta = delta + oc.weight_decay * p.float()
+            p.copy_(p.float() - lr * delta)
+            flat_m[key][sl].copy_(m)
+            flat_v[key][sl].copy_(v)
     return params, {"m": opt_state["m"], "v": opt_state["v"], "step": step}, gn

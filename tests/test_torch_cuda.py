@@ -341,13 +341,25 @@ def test_rglru_kernel_vs_plain_on_card(cuda_device, B, S, R, h0, model_a, dtype)
 
 
 # Kernel launches per prefill of each reduced config: one per attention or
-# SSM or RG-LRU layer of its kind.
+# SSM or RG-LRU layer of its kind (whisper-medium: 2 encoder and 2 decoder
+# self-attention layers; its cross-attention is the plain version).
 REDUCED_LAUNCHES = {
     "qwen3-0.6b": {"flash_attn_fwd": 2},
     "smollm-135m": {"flash_attn_fwd": 2},
     "mamba2-780m": {"ssd_chunk": 2},
     "recurrentgemma-2b": {"flash_attn_fwd": 1, "rglru_scan": 4},
+    "granite-moe-3b-a800m": {"flash_attn_fwd": 2},
+    "whisper-medium": {"flash_attn_fwd": 4},
 }
+
+
+def _frames(cfg, batch: int, device):
+    """Random encoder frames for an encoder-decoder config, else nothing."""
+    if not cfg.enc_dec:
+        return {}
+    g = torch.Generator().manual_seed(6)
+    return {"enc_embeds": torch.randn(batch, cfg.enc_seq, cfg.d_model,
+                                      generator=g).to(device)}
 
 
 @pytest.mark.parametrize("arch", sorted(REDUCED_LAUNCHES))
@@ -362,12 +374,15 @@ def test_reduced_model_on_card_matches_cpu(cuda_device, arch):
         np.random.default_rng(5).integers(0, cfg.vocab, size=(B, S)))
     prefill = make_prefill_step(cfg, cache_len=S + new)
     decode = make_decode_step(cfg)
+    frames = _frames(cfg, B, "cpu")
     with torch.inference_mode():
         LAUNCHES.clear()
-        glog, gcache = prefill(gpu, {"tokens": prompts.to(cuda_device)})
+        glog, gcache = prefill(gpu, {"tokens": prompts.to(cuda_device),
+                                     **{k: t.to(cuda_device)
+                                        for k, t in frames.items()}})
         torch.cuda.synchronize()
         assert dict(LAUNCHES) == REDUCED_LAUNCHES[arch]
-        clog, ccache = prefill(cpu, {"tokens": prompts})
+        clog, ccache = prefill(cpu, {"tokens": prompts, **frames})
         np.testing.assert_allclose(_np(glog), _np(clog), rtol=1e-4, atol=1e-4)
         for i in range(new):
             ctok = clog[:, -1].argmax(-1)[:, None]
@@ -852,6 +867,10 @@ FULL_TRAIN = {
     "recurrentgemma-2b": (1, {"rglru_scan": 34, "rglru_scan_bwd": 18,
                               "flash_attn_fwd": 16,
                               **dict.fromkeys(BWD_KERNELS, 8)}),
+    "granite-moe-3b-a800m": (4, {"flash_attn_fwd": 64,
+                                 **dict.fromkeys(BWD_KERNELS, 32)}),
+    "whisper-medium": (4, {"flash_attn_fwd": 96,
+                           **dict.fromkeys(BWD_KERNELS, 48)}),
 }
 
 
@@ -866,7 +885,8 @@ def test_full_width_train_step_on_card(cuda_device, arch):
     toks = np.random.default_rng(5).integers(0, cfg.vocab,
                                              size=(batch_size, 2049)).astype(np.int32)
     batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(cuda_device),
-             "labels": torch.from_numpy(toks[:, 1:]).to(cuda_device)}
+             "labels": torch.from_numpy(toks[:, 1:]).to(cuda_device),
+             **_frames(cfg, batch_size, cuda_device)}
     LAUNCHES.clear()
     _, metrics = make_train_step(cfg)({"params": params,
                                        "opt": init_opt_state(params)}, batch)

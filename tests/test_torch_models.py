@@ -1,5 +1,5 @@
-"""The port's models (``repro_torch.models``: dense, Mamba2 and RG-LRU
-hybrid) against the JAX package.
+"""The port's models (``repro_torch.models``: dense, mixture of experts,
+Mamba2, RG-LRU hybrid and encoder-decoder) against the JAX package.
 
 The same parameters (made by ``repro.models.lm.init_params`` and carried
 over with ``repro_torch.convert``) and the same numpy inputs go through both.
@@ -16,6 +16,7 @@ import torch
 
 from repro.configs import ARCHS as JAX_ARCHS
 from repro.models import layers as jl
+from repro.models import moe as jmoe
 from repro.models import rglru as jrg
 from repro.models import ssm as jssm
 from repro.models.lm import init_cache as jax_init_cache
@@ -27,10 +28,11 @@ from repro.train.checkpoint import _flatten as jax_flatten
 from repro_torch.configs import ARCHS
 from repro_torch.convert import module_from_tree, state_dict_from_tree
 from repro_torch.models import layers as tl
+from repro_torch.models import moe as tmoe
 from repro_torch.models import rglru as trg
 from repro_torch.models import ssm as tssm
 from repro_torch.models.lm import init_cache, init_params, num_params
-from repro_torch.models.params import flatten
+from repro_torch.models.params import flatten, unflatten
 from repro_torch.models.steps import make_decode_step, make_prefill_step
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -45,10 +47,23 @@ CASES = {
     # (rglru, rglru, attn) stack plus two rglru tail layers; local window 8,
     # MQA at head_dim 16
     "recurrentgemma-2b": {},
+    # dense stacks of other widths: MHA, GQA 32/8, qk-norm
+    "granite-3-2b": {},
+    "command-r-35b": {},
+    "chameleon-34b": {},
+    # mixture of experts (reduced: 8 experts, top 2, drop-free capacity);
+    # deepseek-moe-16b with a dense first layer (dec/pre0) and 2 shared experts
+    "granite-moe-3b-a800m": {},
+    "deepseek-moe-16b": {},
+    # encoder-decoder: a 2-layer non-causal encoder over 16 frames,
+    # cross-attention, absolute sinusoidal positions, biases, GELU
+    "whisper-medium": {},
 }
 SSM = sorted(c for c in CASES if c.startswith("mamba2"))
 RGLRU = ["recurrentgemma-2b"]
-DENSE = sorted(set(CASES) - set(SSM) - set(RGLRU))
+MOE = ["deepseek-moe-16b", "granite-moe-3b-a800m"]
+ENCDEC = ["whisper-medium"]
+DENSE = sorted(set(CASES) - set(SSM) - set(RGLRU) - set(MOE) - set(ENCDEC))
 
 
 def _configs(case):
@@ -177,15 +192,15 @@ def test_rglru_block_prefill_and_decode(case):
 def test_prefill_then_greedy_decode(case):
     jcfg, tcfg, jparams, model = _pair(case)
     B, S, new = 2, 12, 4
-    prompts = np.random.default_rng(5).integers(0, tcfg.vocab, size=(B, S))
+    jbatch, tbatch = _prompts(tcfg, B, S)
     j_prefill = jax.jit(jax_prefill_step(jcfg, cache_len=S + new))
     j_decode = jax.jit(jax_decode_step(jcfg))
     t_prefill = make_prefill_step(tcfg, cache_len=S + new)
     t_decode = make_decode_step(tcfg)
 
-    jlog, jcache = j_prefill(jparams, {"tokens": jnp.asarray(prompts, jnp.int32)})
+    jlog, jcache = j_prefill(jparams, jbatch)
     with torch.inference_mode():
-        tlog, tcache = t_prefill(model, {"tokens": torch.from_numpy(prompts)})
+        tlog, tcache = t_prefill(model, tbatch)
     _close(tlog, jlog)
     _close_caches(tcache, jcache, case)
 
@@ -203,13 +218,26 @@ def test_prefill_then_greedy_decode(case):
     _close_caches(tcache, jcache, case)
 
 
+def _prompts(tcfg, B, S, seed=5):
+    """A batch of B prompts of S tokens for both packages; an
+    encoder-decoder config also gets (B, enc_seq, D) random encoder frames."""
+    prompts = np.random.default_rng(seed).integers(0, tcfg.vocab, size=(B, S))
+    jbatch = {"tokens": jnp.asarray(prompts, jnp.int32)}
+    tbatch = {"tokens": torch.from_numpy(prompts)}
+    if tcfg.enc_dec:
+        jbatch["enc_embeds"], tbatch["enc_embeds"] = _x(
+            (B, tcfg.enc_seq, tcfg.d_model), seed=seed + 1)
+    return jbatch, tbatch
+
+
 def _close_caches(tcache, jcache, case):
     """Every entry of the two caches (stacked blocks and tail layers), under
     the reference's keys."""
     tflat, jflat = flatten(tcache), jax_flatten(jcache)
     assert set(tflat) == set(jflat)
     kinds = {"conv", "state"} if case in SSM else \
-        {"conv", "h", "k", "v", "pos"} if case in RGLRU else {"k", "v", "pos"}
+        {"conv", "h", "k", "v", "pos"} if case in RGLRU else \
+        {"k", "v", "pos", "xk", "xv"} if case in ENCDEC else {"k", "v", "pos"}
     assert {key.rsplit("/", 1)[1] for key in tflat} == kinds
     for key in jflat:
         _close(tflat[key], jflat[key])
@@ -285,15 +313,6 @@ def test_random_init_is_seeded_and_shaped():
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-@pytest.mark.parametrize("name", ["deepseek-moe-16b", "granite-moe-3b-a800m",
-                                  "whisper-medium"])
-def test_unported_families_raise(name):
-    cfg = ARCHS[name].reduced()
-    model = init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="slice"):
-        make_prefill_step(cfg)(model, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
-
-
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_init_cache_matches_reference(case):
     jcfg, tcfg = _configs(case)
@@ -338,3 +357,159 @@ def test_bf16_tree_converts_and_matches_jax(case):
     with torch.inference_mode():
         tlog, _ = make_decode_step(tcfg)(model, tcache, torch.from_numpy(tok), S)
     _close(tlog, jlog)
+
+
+def _tree0(tree):
+    """Layer 0 of a stacked tree (nested dicts of tensors), as views."""
+    return {k: _tree0(v) if isinstance(v, dict) else v[0] for k, v in tree.items()}
+
+
+def _moe_pair(case, **over):
+    """The reduced config's layer-0 MoE parameters in both packages."""
+    jcfg, tcfg = (dataclasses.replace(c, **over) for c in _configs(case))
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    model = module_from_tree(jax.device_get(jparams), tcfg, device="cpu")
+    return (jcfg, _layer0(jparams["dec"]["stack"]["b0"])["moe"], tcfg,
+            _tree0(model.tree()["dec"]["stack"]["b0"])["moe"])
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5])
+def test_top_k_breaks_ties_to_the_lower_index_as_jax(k):
+    """Rows built with exact ties, among them ``[1, 3, 3, 2, 3]`` (top 2:
+    JAX picks experts 1 and 2; ``torch.topk`` on the CPU gave 2 and 4)."""
+    rows = np.array([[1, 3, 3, 2, 3, 0], [0.25] * 6, [5, 5, 1, 5, 0, 5],
+                     [2, 1, 2, 1, 2, 1], [0, 0, 0, 1, 1, 1]], np.float32)
+    rows = np.concatenate([rows, np.random.default_rng(k).integers(
+        0, 3, size=(20, 6)).astype(np.float32)])
+    jv, ji = jax.lax.top_k(jnp.asarray(rows), k)
+    tv, ti = tmoe.top_k(torch.from_numpy(rows), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    if k == 2:
+        np.testing.assert_array_equal(ti[0].numpy(), [1, 2])
+
+
+@pytest.mark.parametrize("case", MOE)
+def test_moe_routing_ties_match_jax(case):
+    """A router whose columns come in groups of three equal ones and inputs
+    of small integers, so the f32 logits of many tokens tie exactly across
+    the top-k cut (both packages compute them exactly): the chosen experts,
+    and so the layer's output, are the reference's (f32, 1e-4)."""
+    jcfg, jp, tcfg, tp = _moe_pair(case)
+    E, D = tcfg.n_experts, tcfg.d_model
+    rng = np.random.default_rng(3)
+    router = rng.integers(-1, 2, size=(D, E)).astype(np.float32)
+    router = router[:, np.arange(E) // 3]  # experts 0-2, 3-5, ... tie
+    x = rng.integers(-1, 2, size=(2, 24, D)).astype(np.float32)
+    jp = dict(jp, router=jnp.asarray(router))
+    tp = dict(tp, router=torch.from_numpy(router))
+    probs = np.sort(np.asarray(jax.nn.softmax(jnp.asarray(x) @ router)), -1)
+    K = tcfg.top_k
+    assert (probs[..., -K] == probs[..., -K - 1]).mean() > 0.3  # ties at the cut
+    _close(tmoe.moe_apply(tp, torch.from_numpy(x), tcfg),
+           jmoe.moe_apply(jp, jnp.asarray(x), jcfg))
+
+
+@pytest.mark.parametrize("case", MOE)
+def test_moe_apply_drops_over_capacity_and_matches_jax(case):
+    """At the full configs' capacity factor (1.25; the reduced configs are
+    drop-free) and 40 tokens a row, some assignments overflow their expert
+    and are dropped.  The output and the gradients of the parameters and of
+    x match the JAX package in f32 at 1e-4: the dispatch buffer holds the
+    same rows, and each token's K contributions are summed in token order
+    where the reference scatter-adds them in the sort's order."""
+    jcfg, jp, tcfg, tp = _moe_pair(case, capacity_factor=1.25)
+    jx, tx = _x((2, 40, tcfg.d_model), seed=9)
+    _, experts = tmoe.route(tp, tx, tcfg)
+    cap = tmoe.capacity(tcfg, 40)
+    dropped = int((tmoe.positions(experts, tcfg.n_experts) >= cap).sum())
+    assert cap == int(40 * tcfg.top_k / tcfg.n_experts * 1.25) and dropped > 0
+    jw, tw = _x((2, 40, tcfg.d_model), seed=10)
+
+    def jloss(p, x):
+        return (jmoe.moe_apply(p, x, jcfg) * jw).sum()
+
+    jy = jmoe.moe_apply(jp, jx, jcfg)
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jp, jx)
+    tflat = {k: t.detach().clone().requires_grad_() for k, t in flatten(tp).items()}
+    tx.requires_grad_()
+    ty = tmoe.moe_apply(unflatten(tflat), tx, tcfg)
+    grads = torch.autograd.grad((ty * tw).sum(), [tx, *tflat.values()])
+    _close(ty, jy)
+    _close(grads[0], jgx)
+    jflat = jax_flatten(jgp)
+    assert set(jflat) == set(tflat)
+    for key, g in zip(tflat, grads[1:]):
+        _close(g, jflat[key])
+
+
+@pytest.mark.parametrize("case", MOE)
+def test_moe_oracle_at_one_token_matches_jax(case):
+    """Decode (S == 1) takes the dense oracle, which drops nothing, in both
+    packages; the oracle also matches at S > 1 (f32, 1e-4)."""
+    jcfg, jp, tcfg, tp = _moe_pair(case, capacity_factor=1.25)
+    jx, tx = _x((3, 1, tcfg.d_model), seed=11)
+    _close(tmoe.moe_apply(tp, tx, tcfg), jmoe.moe_apply(jp, jx, jcfg))
+    _close(tmoe.moe_apply_oracle(tp, tx, tcfg), jmoe.moe_apply_oracle(jp, jx, jcfg))
+    jx, tx = _x((2, 7, tcfg.d_model), seed=12)
+    _close(tmoe.moe_apply_oracle(tp, tx, tcfg), jmoe.moe_apply_oracle(jp, jx, jcfg))
+
+
+def test_whisper_layers_match_jax():
+    """The sinusoidal position embedding at positions 0..2047 (f32, 1e-4:
+    the angles reach 2047 rad, where sin and cos of the same f32 angle
+    differ between libraries by a few ulp of the angle), and one decoder
+    layer's cross-attention over encoder states of another length, from
+    the encoder's output and from given K/V."""
+    pos = np.arange(2048)
+    _close(tl.sinusoidal_embedding(torch.from_numpy(pos), 64),
+           jl.sinusoidal_embedding(jnp.asarray(pos), 64))
+    jcfg, tcfg, jparams, model = _pair("whisper-medium")
+    jp = _layer0(jparams["dec"]["stack"]["b0"])["xattn"]
+    tp = _block0(model)["xattn"]
+    assert {"bq", "bv"} <= set(tp) and "bk" not in tp
+    jx, tx = _x((2, 5, tcfg.d_model), seed=13)
+    je, te = _x((2, tcfg.enc_seq, tcfg.d_model), seed=14)
+    ty, (tk, tv) = tl.cross_attention(tp, tx, tcfg, enc_out=te)
+    jy, (jk, jv) = jl.cross_attention(jp, jx, jcfg, enc_out=je)
+    for got, ref in ((ty, jy), (tk, jk), (tv, jv)):
+        _close(got, ref)
+    ty, _ = tl.cross_attention(tp, tx, tcfg, enc_kv=(tk, tv))
+    _close(ty, jy)
+
+
+def test_whisper_decode_reads_the_encoder_cache():
+    """Prefill writes each decoder layer's cross-attention K/V (``xk``,
+    ``xv``: (layers, B, enc_seq, KH, hd)) as the reference's cache holds
+    them; decode reads them, leaves them bit for bit as they were, and
+    matches the reference's logits (1e-4)."""
+    jcfg, tcfg, jparams, model = _pair("whisper-medium")
+    B, S = 2, 6
+    jbatch, tbatch = _prompts(tcfg, B, S, seed=21)
+    jlog, jcache = jax.jit(jax_prefill_step(jcfg, cache_len=S + 2))(jparams, jbatch)
+    with torch.inference_mode():
+        tlog, tcache = make_prefill_step(tcfg, cache_len=S + 2)(model, tbatch)
+    enc = {k: tcache["dec"]["stack"]["b0"][k].clone() for k in ("xk", "xv")}
+    want = (tcfg.n_layers, B, tcfg.enc_seq, tcfg.n_kv_heads, tcfg.hd)
+    for k, t in enc.items():
+        assert tuple(t.shape) == want and t.abs().max() > 0
+        _close(t, jcache["dec"]["stack"]["b0"][k])
+    tok = np.array(jnp.argmax(jlog[:, -1], axis=-1))[:, None]
+    for i in range(2):
+        jlog, jcache = jax.jit(jax_decode_step(jcfg))(
+            jparams, jcache, jnp.asarray(tok), jnp.int32(S + i))
+        with torch.inference_mode():
+            tlog, _ = make_decode_step(tcfg)(model, tcache, torch.from_numpy(tok),
+                                             S + i)
+        _close(tlog, jlog)
+        for k, t in enc.items():
+            assert torch.equal(tcache["dec"]["stack"]["b0"][k], t)
+            _close(tcache["dec"]["stack"]["b0"][k], jcache["dec"]["stack"]["b0"][k])
+        tok = np.array(jnp.argmax(jlog[:, -1], axis=-1))[:, None]
+
+
+def test_encoder_decoder_needs_its_frames():
+    cfg = ARCHS["whisper-medium"].reduced()
+    model = init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="enc_embeds"):
+        make_prefill_step(cfg)(model, {"tokens": torch.zeros(1, 4, dtype=torch.long)})

@@ -21,6 +21,16 @@ def test_serve_reduced_on_cpu():
     assert 2 * 4 <= out["tokens"] <= 3 * 5
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "whisper-medium"])
+def test_serve_moe_and_encoder_decoder_reduced_on_cpu(arch):
+    """Mixture of experts (prefill dispatches by capacity, decode takes the
+    dense oracle) and the encoder-decoder (zero encoder frames, the encoder's
+    K/V cached by prefill and read by decode)."""
+    out = serve.main(SMALL + ["--arch", arch, "--device", "cpu"])
+    assert out["arch"] == f"{arch}-reduced" and out["rounds"] == 2
+    assert 2 * 4 <= out["tokens"] <= 3 * 5
+
+
 def test_no_reduced_serves_the_published_width():
     out = serve.main(["--arch", "smollm-135m", "--no-reduced", "--device", "cpu",
                       "--requests", "1", "--batch", "1", "--prompt-len", "4",

@@ -51,12 +51,15 @@ from repro_torch.train.optimizer import (OptConfig, adamw_update,
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
-CASES = {  # tests/test_torch_models.py's dense cases and the recurrent ones
+CASES = {  # tests/test_torch_models.py's dense cases and every other family
     "smollm-135m": {},
     "qwen3-0.6b": {},
     "qwen3-0.6b-local": {"attn_kind": "local", "local_window": 8},
     "mamba2-780m": {},
     "recurrentgemma-2b": {},
+    "granite-moe-3b-a800m": {},
+    "deepseek-moe-16b": {},
+    "whisper-medium": {},  # the encoder over 16 random frames, rematerialised
 }
 B, S = 2, 16
 
@@ -78,9 +81,17 @@ def _states(case, seed=0):
             tcfg, {"params": params, "opt": init_opt_state(params)})
 
 
-def _batches(vocab, n, seed=3):
-    src = SyntheticTokens(vocab, B, S, seed=seed)
-    return [src.next_batch() for _ in range(n)]
+def _batches(cfg, n, seed=3):
+    """n batches of the synthetic stream; an encoder-decoder config's also
+    hold (B, enc_seq, D) random encoder frames."""
+    src = SyntheticTokens(cfg.vocab, B, S, seed=seed)
+    batches = [src.next_batch() for _ in range(n)]
+    if cfg.enc_dec:
+        rng = np.random.default_rng(seed)
+        for batch in batches:
+            batch["enc_embeds"] = rng.normal(
+                size=(B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return batches
 
 
 def _np(x):
@@ -99,8 +110,11 @@ def _close_trees(got, ref, **tol):
 
 def _grads(jcfg, jstate, tcfg, tstate, batch):
     """Each package's loss and gradients of one batch."""
+    enc = batch.get("enc_embeds")
+
     def loss_fn(p):
-        h, _ = jax_forward(p, jcfg, jnp.asarray(batch["tokens"]), mode="train")
+        h, _ = jax_forward(p, jcfg, jnp.asarray(batch["tokens"]), mode="train",
+                           enc_embeds=None if enc is None else jnp.asarray(enc))
         return jax_ce(p, h, jnp.asarray(batch["labels"]), jcfg)
 
     jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(jstate["params"])
@@ -108,7 +122,8 @@ def _grads(jcfg, jstate, tcfg, tstate, batch):
     flat = flatten(tstate["params"])
     for p in flat.values():
         p.requires_grad_(True)
-    h, _ = forward(tstate["params"], tcfg, tb["tokens"], mode="train")
+    h, _ = forward(tstate["params"], tcfg, tb["tokens"], mode="train",
+                   enc_embeds=tb.get("enc_embeds"))
     tloss = chunked_ce_loss(tstate["params"], h, tb["labels"], tcfg)
     tgrads = torch.autograd.grad(tloss, list(flat.values()))
     return jloss, jgrads, tloss, dict(zip(flat, tgrads))
@@ -118,7 +133,7 @@ def _grads(jcfg, jstate, tcfg, tstate, batch):
 def test_loss_and_every_gradient_match_jax(case):
     jcfg, jstate, tcfg, tstate = _states(case)
     jloss, jgrads, tloss, tgrads = _grads(jcfg, jstate, tcfg, tstate,
-                                          _batches(tcfg.vocab, 1)[0])
+                                          _batches(tcfg, 1)[0])
     np.testing.assert_allclose(_np(tloss), _np(jloss), **LOSS_TOL)
     _close_trees(tgrads, jgrads, **TOL)
 
@@ -132,7 +147,7 @@ def test_train_steps_match_jax(case, steps):
     oc_j, oc_t = JaxOptConfig(total_steps=1000), OptConfig(total_steps=1000)
     jstep = jax.jit(jax_train_step(jcfg, oc_j))
     tstep = make_train_step(tcfg, oc_t)
-    for batch in _batches(tcfg.vocab, steps):
+    for batch in _batches(tcfg, steps):
         jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
         tstate, tm = tstep(tstate, shard_batch(batch, "cpu"))
         for key in ("loss", "grad_norm"):
@@ -150,7 +165,7 @@ def test_int8_compressed_step_matches_jax():
     jcfg, jstate, tcfg, tstate = _states("qwen3-0.6b")
     jstep = jax.jit(jax_train_step(jcfg, JaxOptConfig(), grad_compression="int8"))
     tstep = make_train_step(tcfg, OptConfig(), grad_compression="int8")
-    for batch in _batches(tcfg.vocab, 2):
+    for batch in _batches(tcfg, 2):
         jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
         tstate, tm = tstep(tstate, shard_batch(batch, "cpu"))
         np.testing.assert_allclose(_np(tm["loss"]), _np(jm["loss"]), **LOSS_TOL)
@@ -349,7 +364,8 @@ SMALL = ["--reduced", "--device", "cpu", "--batch", "2", "--seq", "16",
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "granite-moe-3b-a800m",
+                                  "whisper-medium"])
 def test_train_launcher_reduced_on_cpu(arch):
     out = train.main(SMALL + ["--arch", arch, "--steps", "3"])
     assert out["arch"] == f"{arch}-reduced" and out["device"] == "cpu"
@@ -381,9 +397,63 @@ def test_train_default_device_without_a_card_raises(monkeypatch):
         train.main(["--reduced", "--steps", "1"])
 
 
-def test_moe_blocks_do_not_train_yet():
-    """Mixture-of-experts blocks are not ported: train mode raises, as
-    prefill does."""
-    cfg = ARCHS["granite-moe-3b-a800m"].reduced()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        forward({}, cfg, torch.zeros(1, 4, dtype=torch.int32), mode="train")
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-moe-16b",
+                                  "whisper-medium"])
+def test_moe_and_encoder_trees_convert_and_checkpoint_both_ways(arch, tmp_path):
+    """The expert stacks (router, w_in, w_gate, w_out; deepseek's shared
+    experts and dense first layer) and the encoder-decoder's ``enc/``,
+    ``enc_norm`` and ``xattn`` keys: the reference's tree converts into the
+    port, the port's train state restores in the JAX package and the JAX
+    package's in the port, leaf for leaf (exact)."""
+    jcfg, jstate, tcfg, tstate = _states(arch)
+    keys = set(flatten(tstate["params"]))
+    assert keys == set(jax_ckpt._flatten(jax.device_get(jstate["params"])))
+    if tcfg.enc_dec:
+        assert "enc_norm" in keys and any(k.startswith("enc/stack/b0/") for k in keys)
+        assert "dec/stack/b0/xattn/wq" in keys and "dec/stack/b0/lnx" in keys
+    else:
+        w_in = flatten(tstate["params"])["dec/stack/b0/moe/w_in"]
+        assert tuple(w_in.shape)[1:] == (tcfg.n_experts, tcfg.d_model,
+                                         tcfg.expert_d_ff)
+    _close_trees(tstate["params"], jstate["params"], rtol=0, atol=0)
+    checkpoint.save_checkpoint(str(tmp_path / "port"), tstate, 1)
+    jrestored, _, _ = jax_ckpt.restore_checkpoint(str(tmp_path / "port"))
+    _close_trees(tstate, jrestored, rtol=0, atol=0)
+    jax_ckpt.save_checkpoint(str(tmp_path / "jax"), jstate, 2)
+    restored, step, _ = checkpoint.restore_checkpoint(str(tmp_path / "jax"),
+                                                      device="cpu")
+    assert step == 2
+    _close_trees(restored, jstate, rtol=0, atol=0)
+
+
+def test_adamw_updates_a_large_leaf_in_slices_bit_for_bit(monkeypatch):
+    """A leaf larger than ``SLICE_ELEMENTS`` is updated a slice of rows at
+    a time (a (5, 7, 3) leaf in slices of 2 rows, a (13,) vector in
+    slices of 6, a row larger than a slice alone); parameters and moments
+    equal those of the update in one piece, to the bit."""
+    from repro_torch.train import optimizer
+    rng = np.random.default_rng(8)
+    shapes = {"w": (5, 7, 3), "b": (13,), "r": (3, 50)}
+    tree = lambda: {k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                    for k, s in shapes.items()}
+    p, g, m = tree(), tree(), tree()
+    v = {k: t.abs() for k, t in tree().items()}
+    oc = OptConfig(lr=1e-2, warmup_steps=2)
+    state = lambda: {"m": {k: t.clone() for k, t in m.items()},
+                     "v": {k: t.clone() for k, t in v.items()},
+                     "step": torch.tensor(3, dtype=torch.int32)}
+    whole_p = {k: t.clone() for k, t in p.items()}
+    whole_p, whole_opt, _ = adamw_update(whole_p, g, state(), oc)
+    monkeypatch.setattr(optimizer, "SLICE_ELEMENTS", 42)
+    assert [s_.stop for s_ in optimizer._slices(p["w"])] == [2, 4, 6]
+    assert len(optimizer._slices(p["b"])) == 1
+    assert len(optimizer._slices(p["r"])) == 3
+    monkeypatch.setattr(optimizer, "SLICE_ELEMENTS", 6)
+    sliced_p = {k: t.clone() for k, t in p.items()}
+    sliced_p, sliced_opt, _ = adamw_update(sliced_p, g, state(), oc)
+    assert len(optimizer._slices(p["b"])) == 3
+    for got, want in ((sliced_p, whole_p), (sliced_opt["m"], whole_opt["m"]),
+                      (sliced_opt["v"], whole_opt["v"])):
+        for k in shapes:
+            assert torch.equal(got[k], want[k]), k
+    assert not any(torch.equal(sliced_p[k], p[k]) for k in shapes)  # it moved

@@ -5,10 +5,12 @@
     python3 tools/train_profile.py --warmup 4 --steps 1
     python3 tools/train_profile.py --arch mamba2-780m
     python3 tools/train_profile.py --arch recurrentgemma-2b --batch 2
+    python3 tools/train_profile.py --arch granite-moe-3b-a800m
     python3 tools/train_profile.py --arch smollm-135m --batch 2 --seq 32 --warmup 4
 
 Builds the port's kernels, trains a full-width model (qwen3-0.6b by
-default; smollm-135m, mamba2-780m or recurrentgemma-2b) at batch 4 x 2048
+default; smollm-135m, mamba2-780m, recurrentgemma-2b, granite-moe-3b-a800m
+or whisper-medium, fed zero encoder frames) at batch 4 x 2048
 unless ``--batch`` or ``--seq`` says otherwise (``chip_smoke.py``'s
 training cells; its physical mode's jobs train at 2 x 32; random weights,
 synthetic tokens):
@@ -72,7 +74,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--arch", default="qwen3-0.6b",
                     choices=("qwen3-0.6b", "smollm-135m", "mamba2-780m",
-                             "recurrentgemma-2b"))
+                             "recurrentgemma-2b", "granite-moe-3b-a800m",
+                             "whisper-medium"))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
     args = ap.parse_args(argv)
@@ -87,7 +90,8 @@ def main(argv=None) -> int:
     from repro_torch.configs import ARCHS
     from repro_torch.data.pipeline import SyntheticTokens, shard_batch
     from repro_torch.kernels import build
-    from repro_torch.models.steps import init_train_state, make_train_step
+    from repro_torch.models.steps import (enc_embeds, init_train_state,
+                                          make_train_step)
     from repro_torch.train.optimizer import OptConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -102,7 +106,10 @@ def main(argv=None) -> int:
     def step():
         nonlocal state
         t = time.perf_counter()
-        state, metrics = step_fn(state, shard_batch(src.next_batch(), device))
+        batch = shard_batch(src.next_batch(), device)
+        if cfg.enc_dec:
+            batch["enc_embeds"] = enc_embeds(cfg, args.batch, device)
+        state, metrics = step_fn(state, batch)
         float(metrics["loss"])
         torch.cuda.synchronize(device)
         return 1e3 * (time.perf_counter() - t)
