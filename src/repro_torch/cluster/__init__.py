@@ -1,4 +1,8 @@
-"""Eva's physical mode (``repro/cluster/localcloud.py``): ``localcloud``
-runs rounds of ``EvaScheduler`` over real training jobs.  The simulator,
-its traces and the fleet generator wait for the port's fleet-scale planner,
-so this package imports none of them."""
+# Simulated cloud substrate: event-driven cluster simulator + trace generators.
+from .simulator import Metrics, SimConfig, Simulator
+from .traces import (alibaba_like_trace, burstable_trace, deferrable_trace,
+                     physical_trace, portfolio_trace, serving_trace)
+
+__all__ = ["Metrics", "SimConfig", "Simulator", "alibaba_like_trace",
+           "burstable_trace", "deferrable_trace", "physical_trace",
+           "portfolio_trace", "serving_trace"]

@@ -237,9 +237,16 @@ def full_reconfiguration(tasks: TaskSet, catalog: Catalog,
         n = int(tasks.workloads.max()) + 1 if len(tasks) else 1
         pairwise = np.ones((max(n, 1), max(n, 1)))
     if engine == "jax":
-        raise ValueError("engine='jax': the JAX engine has no port yet; "
-                         "use engine='numpy' or engine='python'")
-    packer = {"python": _pack_python, "numpy": _pack_numpy}[engine]
+        raise ValueError("engine='jax': the port packs with engine='torch' "
+                         "(on the card) or engine='torch:cpu'")
+    elif engine in ("torch", "torch:cpu"):
+        from .engine_torch import pack_torch
+        device = "cpu" if engine == "torch:cpu" else "cuda"
+
+        def packer(*args):
+            return pack_torch(*args, device=device)
+    else:
+        packer = {"python": _pack_python, "numpy": _pack_numpy}[engine]
     packed = packer(tasks.demand_by_family, tasks.workloads, rp,
                     job_rp, catalog, pairwise, type_mask, region_budget)
     assignments: List[Assignment] = [

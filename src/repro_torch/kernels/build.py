@@ -20,7 +20,7 @@ import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Set
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+BUILT: Set[str] = set()  # the kernels this process compiled
 _LOAD_LOCK = threading.Lock()  # two threads' first use builds once
 
 
@@ -74,6 +75,7 @@ def _build(name: str, src: Path, out: Path) -> str:
                          f"{proc.stdout}")
     out.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    BUILT.add(name)
     return proc.stdout
 
 

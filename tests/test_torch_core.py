@@ -1,8 +1,11 @@
 """The port's copy of Eva's scheduling core (``repro_torch.core``, ``obs``,
-``policies``, ``autoscale``) against the reference package.
+``policies``, ``autoscale``, ``cluster``, ``schedulers``) against the
+reference package.
 
 - Each copied file reads as its original, apart from the engine table of
-  ``core/full_reconfig.py``, which in the port has no JAX engine.
+  ``core/full_reconfig.py``, which in the port packs with ``engine="torch"``
+  (``core/engine_torch.py``) and has no JAX engine.  The port's own files
+  there are ``core/engine_torch.py`` and ``cluster/localcloud.py``.
 - The paper's worked examples (Table 3, the §4.2 walkthrough) hold on the
   port.
 - Seeded multi-round scenarios, in which tasks arrive and leave, each
@@ -38,8 +41,13 @@ COPIED = (
     + [f"policies/{m}.py" for m in (
         "__init__", "base", "layers", "portfolio", "pressure", "slo",
         "stability")]
-    + [f"autoscale/{m}.py" for m in ("__init__", "admission", "forecast")])
-# The one place the copy differs: the port has no JAX engine yet.
+    + [f"autoscale/{m}.py" for m in ("__init__", "admission", "forecast")]
+    + [f"core/{m}.py" for m in ("hetero", "ilp")]
+    + [f"cluster/{m}.py" for m in ("__init__", "fleet", "simulator", "traces")]
+    + [f"schedulers/{m}.py" for m in (
+        "__init__", "common", "no_packing", "owl", "stratus", "synergy")])
+PORT_ONLY = ["core/engine_torch.py", "cluster/localcloud.py"]
+# The one place the copy differs: the port packs with its own engine.
 ENGINE_TABLE = {
     "repro": '''    if engine == "jax":
         from .engine_jax import pack_jax
@@ -48,9 +56,16 @@ ENGINE_TABLE = {
         packer = {"python": _pack_python, "numpy": _pack_numpy}[engine]
 ''',
     "repro_torch": '''    if engine == "jax":
-        raise ValueError("engine='jax': the JAX engine has no port yet; "
-                         "use engine='numpy' or engine='python'")
-    packer = {"python": _pack_python, "numpy": _pack_numpy}[engine]
+        raise ValueError("engine='jax': the port packs with engine='torch' "
+                         "(on the card) or engine='torch:cpu'")
+    elif engine in ("torch", "torch:cpu"):
+        from .engine_torch import pack_torch
+        device = "cpu" if engine == "torch:cpu" else "cuda"
+
+        def packer(*args):
+            return pack_torch(*args, device=device)
+    else:
+        packer = {"python": _pack_python, "numpy": _pack_numpy}[engine]
 '''}
 
 
@@ -70,10 +85,10 @@ def _reference_id_counters_untouched():
 
 def test_the_copy_is_every_file_of_its_packages():
     port = REPO / "src" / "repro_torch"
-    have = sorted(str(p.relative_to(port)) for d in ("core", "obs", "policies",
-                                                      "autoscale")
+    have = sorted(str(p.relative_to(port)) for d in (
+        "core", "obs", "policies", "autoscale", "cluster", "schedulers")
                   for p in (port / d).glob("*.py"))
-    assert have == sorted(COPIED)
+    assert have == sorted(COPIED + PORT_ONLY)
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -99,7 +114,7 @@ def test_reservation_prices_match_table3():
         [12.0, 3.0, 0.8, 0.4]
 
 
-@pytest.mark.parametrize("engine", ["python", "numpy"])
+@pytest.mark.parametrize("engine", ["python", "numpy", "torch:cpu"])
 def test_full_reconfiguration_walkthrough(engine):
     """§4.2: tau1, tau2, tau4 on it1, tau3 alone on it3; $12.8 an hour
     against $16.2 with no packing."""
@@ -115,7 +130,8 @@ def test_full_reconfiguration_walkthrough(engine):
 
 
 def test_jax_engine_raises():
-    with pytest.raises(ValueError, match="JAX engine has no port yet"):
+    """The port has no JAX engine; the error names its own."""
+    with pytest.raises(ValueError, match="engine='torch'"):
         full_reconfiguration(table3_tasks(), table3_catalog(), table=None,
                              engine="jax")
     sched = EvaScheduler(table3_catalog(), engine="jax")
@@ -123,7 +139,7 @@ def test_jax_engine_raises():
     tasks = table3_tasks()
     view = SchedulerView(time=0.0, tasks=tasks, pending_ids=set(
         tasks.ids.tolist()), live=[], task_workload={i: i for i in range(4)})
-    with pytest.raises(ValueError, match="JAX engine has no port yet"):
+    with pytest.raises(ValueError, match="engine='torch'"):
         sched.schedule(view)
 
 

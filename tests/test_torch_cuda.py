@@ -26,7 +26,9 @@ same order), one bf16 step (8e-3) on bf16 da and du.  The SSD backward's
 kernels against their plain versions from the same inputs: 1e-4 in f32 and
 2e-2 in bf16 inputs, taken relative to each gradient's largest magnitude for
 the gradients that sum over a chunk's rows (all but dchunk_in and dh0, which
-come from an elementwise recurrence over the chunks).
+come from an elementwise recurrence over the chunks).  The packing pass
+(``kernels/pack_fill``) against ``pack_all_types_ref`` on CPU copies of the
+same inputs: its records, counts and budget equal.
 """
 import ctypes
 
@@ -48,6 +50,8 @@ from repro_torch.kernels.flash_attention.kernel import (BWD_KERNELS, HEAD_DIMS,
                                                         flash_attention_fwd,
                                                         launch_bwd)
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.pack_fill.kernel import pack_fill
+from repro_torch.kernels.pack_fill.ref import pack_all_types_ref
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref, lse_ref)
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd, rglru_scan_fwd
@@ -68,6 +72,8 @@ from repro_torch.models.params import flatten, unflatten
 from repro_torch.models.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.train.optimizer import init_opt_state
+
+from torch_pack_cases import PACK_CASES, pack_case
 
 pytestmark = pytest.mark.cuda
 
@@ -920,3 +926,25 @@ def test_local_cloud_trains_reduced_jobs_on_card(cuda_device, tmp_path):
     layers = sum(j.arch_cfg.n_layers * j.total_steps for j in jobs)
     assert dict(LAUNCHES) == {"flash_attn_fwd": 2 * layers,
                               **dict.fromkeys(BWD_KERNELS, layers)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case,max_fills", PACK_CASES)
+def test_pack_fill_vs_plain_on_card(cuda_device, case, max_fills, dtype):
+    """The packing kernel, at its default launch and at a block of 128
+    threads, against ``pack_all_types_ref`` from the same inputs: the budget
+    left, every kept record, the record count and the overflow flag equal,
+    one launch each."""
+    args = pack_case(case, dtype)
+    want = pack_all_types_ref(*args, max_fills=max_fills)
+    n = int(want[4])
+    kept = min(n, max_fills)
+    for threads in (None, 128):
+        LAUNCHES.clear()
+        got = [t.cpu() for t in pack_fill(*(a.to(cuda_device) for a in args),
+                                          max_fills=max_fills, threads=threads)]
+        assert dict(LAUNCHES) == {"pack_fill": 1}
+        assert torch.equal(got[0], want[0])
+        assert int(got[4]) == n and bool(got[5]) == bool(want[5])
+        for a, b in zip(got[1:4], want[1:4]):
+            assert torch.equal(a[:kept], b[:kept])

@@ -1,5 +1,6 @@
 """The kernels' own C++ on the CPU: ``csrc/rglru_scan.cu``,
-``csrc/ssd_bwd.cu`` and the tensor-core ``csrc/ssd_bwd_tc.cu`` built with g++
+``csrc/ssd_bwd.cu``, the tensor-core ``csrc/ssd_bwd_tc.cu`` and the packing
+pass ``csrc/pack_fill.cu`` built with g++
 against ``tools/cuda_emu/cuda_emu.h`` (one thread per CUDA thread, barriers
 for ``__syncthreads`` and the warp shuffles, and for ``ssd_bwd_tc.cu`` its
 cp.async, ldmatrix and mma.sync), called through their ``extern "C"``
@@ -8,7 +9,11 @@ shapes, at the card's tolerances (``tests/test_torch_cuda.py``): the RG-LRU
 kernels to the bit in f32 (the same rounded sums and products in the same
 order) and one bf16 step in bf16; the SSD backward 1e-4 of each gradient's
 largest magnitude (dA: of the sum of its terms' magnitudes; dchunk_in and
-dh0 elementwise) in f32, 2e-2 with bf16 inputs.  What the emulation cannot
+dh0 elementwise) in f32, 2e-2 with bf16 inputs; the packing pass's records,
+budget and counts equal to ``pack_all_types_ref``'s (the same rounded
+products and sums in the same order; f32 and f64, interference on and off,
+a type mask, region budgets, an overflowing record buffer, both launch
+variants and the per-class state in global scratch).  What the emulation cannot
 show (speed, registers, spills, the card's own compiler and its tensor
 cores' own rounding of sums) ``chip_smoke.py`` shows.
 """
@@ -22,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.pack_fill.ref import pack_all_types_ref
+from torch_pack_cases import PACK_CASES, pack_case
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref, rglru_scan_ref
 from repro_torch.kernels.ssd_scan.ref import (chunk_bwd_ref, chunk_cumsum,
                                               chunk_dstate_ref, pass_states,
@@ -51,7 +58,8 @@ def libs(tmp_path_factory):
     built = {}
     for name, src in (("rglru", CSRC / "rglru_scan/csrc/rglru_scan.cu"),
                       ("ssd", CSRC / "ssd_scan/csrc/ssd_bwd.cu"),
-                      ("ssd_tc", CSRC / "ssd_scan/csrc/ssd_bwd_tc.cu")):
+                      ("ssd_tc", CSRC / "ssd_scan/csrc/ssd_bwd_tc.cu"),
+                      ("pack", CSRC / "pack_fill/csrc/pack_fill.cu")):
         lib = out / f"lib{name}.so"
         proc = subprocess.run([sys.executable, str(ROOT / "tools/cuda_emu/build.py"),
                                str(src), str(lib)], capture_output=True, text=True)
@@ -63,6 +71,7 @@ def libs(tmp_path_factory):
     built["ssd"].ssd_bwd_state_pass.argtypes = [V] * 7 + [I] * 6 + [V]
     built["ssd"].ssd_bwd_chunk.argtypes = [V] * 17 + [I] * 9 + [V]
     built["ssd_tc"].ssd_bwd_chunk_tc.argtypes = [V] * 17 + [I] * 8 + [V]
+    built["pack"].pack_fill.argtypes = [V] * 13 + [I] * 11 + [V] * 7
     return built
 
 
@@ -215,3 +224,38 @@ def test_ssd_bwd_chunk_tensor_cores_emulated(libs, Bt, S, H, P, G, N, chunk, hb)
     for what, a, b in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
         _close(what, a, b, bf, dA_scale if what == "dA" else None,
                tol=TC_BWD_TOL[what])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case,max_fills", PACK_CASES)
+def test_pack_fill_emulated(libs, case, max_fills, dtype):
+    """``pack_fill.cu`` against ``pack_all_types_ref`` from the same inputs:
+    the budget left, every kept record, the record count and the overflow
+    flag equal, at one warp (shuffles alone), at a block of two warps
+    (shared-memory partials and barriers) and with the per-class state in a
+    global scratch buffer."""
+    args = pack_case(case, dtype)
+    C, F, R = args[0].shape
+    W, K, M, NR = args[6].shape[0], args[8].shape[0], args[5].shape[1], \
+        args[12].numel()
+    want = pack_all_types_ref(*args, max_fills=max_fills)
+    n = int(want[4])
+    assert n > max_fills if max_fills == 3 else n <= max_fills
+    kept = min(n, max_fills)
+    scratch = torch.zeros(1 << 16, dtype=torch.uint8)
+    for threads, one_warp, scr in ((32, 1, None), (64, 0, None), (32, 0, scratch)):
+        budget = torch.empty_like(args[12])
+        rec_type = torch.full((max_fills,), -1, dtype=torch.int32)
+        rec_rep = torch.zeros(max_fills, dtype=torch.int32)
+        rec_comp = torch.zeros(max_fills, C, dtype=torch.int32)
+        stats = torch.zeros(4, dtype=torch.int64)
+        assert libs["pack"].pack_fill(
+            *map(_ptr, args), C, F, R, M, W, K, NR, max_fills,
+            int(dtype == torch.float64), threads, one_warp,
+            *map(_ptr, (budget, rec_type, rec_rep, rec_comp, stats, scr)),
+            None) == 0
+        assert torch.equal(budget, want[0])
+        for got, ref in zip((rec_type, rec_rep, rec_comp), want[1:4]):
+            assert torch.equal(got[:kept], ref[:kept])
+        assert stats[:2].tolist() == [n, int(bool(want[5]))]
+        assert stats[2] >= n and stats[3] >= n  # adds, fills

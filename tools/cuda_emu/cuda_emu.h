@@ -1,8 +1,8 @@
 // CPU emulation of the small part of CUDA that the port's kernels use
-// (rglru_scan.cu, ssd_bwd.cu, ssd_bwd_tc.cu), so that their C++ can be run
-// and held against the plain versions where there is no card and no nvcc:
-// one std::thread per CUDA thread, std::barrier for __syncthreads, a per-warp
-// barrier for __syncwarp and the 32-bit shuffles; blocks run one after
+// (rglru_scan.cu, ssd_bwd.cu, ssd_bwd_tc.cu, pack_fill.cu), so that their C++
+// can be run and held against the plain versions where there is no card and
+// no nvcc: one std::thread per CUDA thread, std::barrier for __syncthreads, a
+// per-warp barrier for __syncwarp and the 32- and 64-bit shuffles; blocks run one after
 // another, so a kernel's __shared__ arrays become static ones.  Dynamic
 // shared memory is poisoned with NaN bits before each block.  Inline PTX does
 // not build.  A source that wraps its PTX in functions may leave them to this
@@ -64,6 +64,7 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
 }
 
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline double __dmul_rn(double a, double b) { volatile double r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __expf(float x) { return std::exp(x); }
 inline float __frcp_rn(float x) { return 1.f / x; }
@@ -74,7 +75,7 @@ inline unsigned char emu_dyn_smem[256 * 1024] __attribute__((aligned(16)));
 struct EmuBlock {
   std::barrier<>* bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
-  std::vector<uint32_t> xch;  // per thread exchange slot (32-bit)
+  std::vector<uint64_t> xch;  // per thread exchange slot (32 or 64 bits)
   std::vector<uint32_t> tc;   // per thread, one mma.sync's six operand registers
 };
 inline EmuBlock* emu_block;
@@ -85,27 +86,28 @@ inline void __syncwarp(unsigned = 0xffffffffu) { emu_block->warp_bars[emu_tid / 
 
 template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int mask, int width = 32) {
-  static_assert(sizeof(T) == 4, "32-bit shuffles only");
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "32- and 64-bit shuffles only");
   const int lane = emu_tid % 32, base = emu_tid - lane;
-  uint32_t u; std::memcpy(&u, &v, 4);
+  uint64_t u = 0; std::memcpy(&u, &v, sizeof(T));
   emu_block->xch[emu_tid] = u;
   __syncwarp();
   const int src = base + ((lane ^ mask) % 32);
-  uint32_t r = emu_block->xch[src];
+  uint64_t r = emu_block->xch[src];
   __syncwarp();
-  T out; std::memcpy(&out, &r, 4);
+  T out; std::memcpy(&out, &r, sizeof(T));
   (void)width;
   return out;
 }
 template <class T>
 inline T __shfl_sync(unsigned, T v, int srcLane, int width = 32) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "32- and 64-bit shuffles only");
   const int lane = emu_tid % 32, base = emu_tid - lane;
-  uint32_t u; std::memcpy(&u, &v, 4);
+  uint64_t u = 0; std::memcpy(&u, &v, sizeof(T));
   emu_block->xch[emu_tid] = u;
   __syncwarp();
-  uint32_t r = emu_block->xch[base + (srcLane % 32)];
+  uint64_t r = emu_block->xch[base + (srcLane % 32)];
   __syncwarp();
-  T out; std::memcpy(&out, &r, 4);
+  T out; std::memcpy(&out, &r, sizeof(T));
   (void)width;
   return out;
 }

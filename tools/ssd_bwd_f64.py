@@ -21,27 +21,12 @@ if a kernel fails to build or launch.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD")
-
-
-@contextlib.contextmanager
-def float_keeps_double():
-    """``Tensor.float()`` leaves a float64 tensor float64, so that a plain
-    version written with f32 casts evaluates its formulas in float64."""
-    import torch
-    cast = torch.Tensor.float
-    torch.Tensor.float = lambda t, *a, **k: (
-        t if t.dtype == torch.float64 else cast(t, *a, **k))
-    try:
-        yield
-    finally:
-        torch.Tensor.float = cast
 
 
 def main() -> int:
@@ -74,7 +59,7 @@ def main() -> int:
             args = (x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in, end)
             kern = ssd_bwd_chunk(*args, chunk=chunk)
             plain = chunk_bwd_ref(*args, chunk=chunk)
-            with float_keeps_double():
+            with smoke.float_keeps_double():
                 *f64, scale = chunk_bwd_ref(
                     *(a.detach().cpu().double() for a in args), chunk=chunk,
                     dA_scale=True)
