@@ -57,11 +57,13 @@ Phases; any that fails ends the run with a non-zero exit:
        at the physical mode's shape, whose f32 dA is held against a float64
        evaluation (SSD_DA_F64);
      - the planner's packing pass (pack_fill, ``core/engine_torch.py``):
-       ``full_reconfiguration(engine="torch")`` on bench_micro's fleets of
-       10^3 and 10^4 tasks, interference off, f32 and f64, equal to the
-       numpy engine's partition; at 10^3 with interference on, f64 equal to
-       the plain version's (``engine="torch:cpu"``) and in both types the
-       numpy engine's cost to 1e-6 with every task placed once; a type mask,
+       ``full_reconfiguration(engine="torch")`` on bench_micro's fleets and
+       on fleets of jobs of 1-8 and of 1-16 tasks (128 and 256 padded
+       classes) of 10^3 and 10^4 tasks, interference off, f32 and f64, equal
+       to the numpy engine's partition; at 10^5 of each, f32 and f64, the kernel's records equal
+       the plain version's; at 10^3 with interference on, f64 equal to the
+       plain version's (``engine="torch:cpu"``) and in both types the numpy
+       engine's cost to 1e-6 with every task placed once; a type mask,
        region caps (the budget spent as the plain version's), multi-task
        jobs and a forced overflow against the plain version;
      - ``SSDScan`` and ``RGLRUScan`` through ``ops.ssd`` and
@@ -87,11 +89,13 @@ Phases; any that fails ends the run with a non-zero exit:
      and C, the one PyTorch call that computes its product; the bf16
      ssd_bwd_chunk_tc beside the CUDA-core kernel it replaced on the same
      bf16 inputs, and that kernel on f32 inputs, its live path), and the
-     whole SSD backward; the packing pass at 10^3-10^6 tasks (ms a pack,
-     greedy adds, ns an add, ``full_reconfiguration`` wall ms, the bound),
-     its plain version on CPU and CUDA tensors and the numpy engine at 10^3
-     and 10^4, one warp against the block kernel, and an incremental repack
-     at 10^5;
+     whole SSD backward (rglru_scan and its backward also at
+     recurrentgemma-2b's training batch 1); the packing pass at 10^3-10^6
+     tasks of each fleet in f32 and f64, the warp kernel against the block
+     kernel on the same inputs, records equal (ms a pack, greedy adds, ns an
+     add, ``full_reconfiguration`` wall ms and launches, the bound), its
+     plain version on CPU and CUDA tensors and the numpy engine at 10^3 and
+     10^4, and an incremental repack at 10^5;
   4. the main paths, each with the launch counts set to 0 just before it and
      read just after: ``repro_torch.launch.serve`` serves 8 requests of
      full-width qwen3-0.6b, then of full-width mamba2-780m, recurrentgemma-2b,
@@ -126,7 +130,8 @@ Phases; any that fails ends the run with a non-zero exit:
      of SIM_JOBS jobs with Eva on the packing kernel in f64
      (``planner_simulation``): every job finished, one launch a pack call,
      every launch's records the plain version's (computed beside the run in
-     worker processes), each pack's cost against the numpy engine's
+     worker processes), the launches by kernel variant, each pack's cost
+     against the numpy engine's
      printed, and the same trace under the numpy engine and No-Packing;
   5. a JSON line per the kernel table, then the last line
      ``{"ok": true, "device": {...}}``.
@@ -316,6 +321,7 @@ RGLRU_GRID = [
     (1, 37, 5, False, False),
 ]
 RGLRU_SERVE = (4, 2048, 2560, False, True)  # recurrentgemma-2b prefill scan
+RGLRU_TRAIN_B1 = (1, 2048, 2560, False, True)  # its training cell's batch 1
 # The flash backward (flash_attn_bwd_pre, _dkdv, _dq) against
 # attention_bwd_ref from the same q, k, v, o, L and dO, abs + rel:
 # - f32: 1e-4 on dq, dk and dv: both sides compute in f32 from the same
@@ -988,15 +994,15 @@ def rglru_kernel_vs_plain(device) -> float:
     return err
 
 
-def rglru_timing(device) -> dict:
-    """Phase 3 for rglru_scan at the serving shape (f32 a and u, as the
-    model's gates give them).  No single PyTorch call computes a linear
+def rglru_timing(device, shape=RGLRU_SERVE) -> dict:
+    """Phase 3 for rglru_scan at the serving shape, or ``shape`` (f32 a and
+    u, as the model's gates give them).  No single PyTorch call computes a linear
     recurrence: library_ms is null.  The bound counts a and u read once and
     h_seq and h_final written once; 2 flops per element."""
     import torch
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
-    a, u, h0 = rglru_inputs(RGLRU_SERVE, torch.float32, device, seed=98)
+    a, u, h0 = rglru_inputs(shape, torch.float32, device, seed=98)
     B, S, R = a.shape
     out = {
         "ms": time_ms(lambda: rglru_scan_fwd(a, u, h0), 50),
@@ -1455,9 +1461,9 @@ def bwd_timing(device, shape=TRAIN_SHAPE) -> dict:
     return out
 
 
-def rglru_bwd_timing(device) -> dict:
-    """Phase 3 for rglru_scan_bwd at recurrentgemma-2b's training shape (f32,
-    as the model's gates give a and u).  No single PyTorch call computes the
+def rglru_bwd_timing(device, shape=RGLRU_SERVE) -> dict:
+    """Phase 3 for rglru_scan_bwd at recurrentgemma-2b's training shape at
+    batch 4, or ``shape`` (f32, as the model's gates give a and u).  No single PyTorch call computes the
     gradient of a linear recurrence: library_ms is null.  The bound counts
     a, the f32 states and dh_seq read once, da and du written once (and h0,
     dh_final, dh0); 3 flops an element."""
@@ -1465,7 +1471,7 @@ def rglru_bwd_timing(device) -> dict:
     from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd,
                                                        rglru_scan_fwd)
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
-    a, u, _ = rglru_inputs(RGLRU_SERVE, torch.float32, device, seed=97)
+    a, u, _ = rglru_inputs(shape, torch.float32, device, seed=97)
     B, S, R = a.shape
     g = torch.Generator(device).manual_seed(96)
     dh = torch.randn(B, S, R, generator=g, device=device)
@@ -2370,21 +2376,34 @@ def layer_parity(cfg, model, batch) -> None:
 # Eva's fleet-scale planner (``repro_torch.core.engine_torch`` over the
 # packing kernel, ``kernels/pack_fill``).  Fleets are built as
 # benchmarks/bench_micro.py's ``_fleet`` builds them (single-task jobs, the
-# workloads' demand profiles gathered per task, seeded by the fleet size), on
-# the AWS catalog with multi_task_aware packing; the interference cases take
-# a seeded random throughput table as tests/test_engines.py's
-# ``_random_table`` (25 pairs in [0.7, 1.0], default 0.97).  Gates: with
-# interference off, the kernel's canonical partition (each instance's type
-# with its sorted task ids, the list sorted) equals the numpy engine's; with
-# it on, in f64, the plain version's (``engine="torch:cpu"``), and in both
+# workloads' demand profiles gathered per task, seeded by the fleet size),
+# and as fleets of jobs of 1-8 tasks (each job's tasks of one workload, so
+# per-job RP sums vary: 71-96 classes, padded to 128, four a lane in the
+# warp kernel) and of 1-16 tasks (88 classes at 10^3, four a lane; 160 from
+# 10^4, padded to 256, eight a lane), on the AWS catalog with multi_task_aware packing; the
+# interference cases take a seeded random throughput table as
+# tests/test_engines.py's ``_random_table`` (25 pairs in [0.7, 1.0],
+# default 0.97).  Gates, on the kernel ``default_launch`` picks: with
+# interference off, at PLAN_GATE_SIZES of every fleet, the kernel's
+# canonical partition (each instance's type with its sorted task ids, the
+# list sorted) equals the numpy engine's; at PLAN_PLAIN_SIZES of every
+# fleet, f32 and f64, the kernel's records, counts and budget equal the
+# plain version's (computed in worker processes beside the other gates);
+# with interference on, in f64, the plain version's partition, and in both
 # types the hourly cost agrees with the numpy engine's to 1e-6 relative and
 # every task is placed exactly once (the reference's own standard,
-# ``test_jax_matches_numpy``).  Then the trace-driven simulation of
+# ``test_jax_matches_numpy``).  Phase 3 times the warp kernel and the block
+# kernel on the same inputs at every size of every fleet in f32 and f64,
+# and their records must agree.  Then the trace-driven simulation of
 # examples/simulate_trace.py: SIM_JOBS jobs of ``alibaba_like_trace`` (seed
 # 42, gavel durations), ``SimConfig(seed=1)``, Eva on the kernel in f64.
 PLAN_SIZES = (1000, 10_000, 100_000, 1_000_000)
 PLAN_GATE_SIZES = (1000, 10_000)
+PLAN_PLAIN_SIZES = (100_000,)
+PLAN_FLEETS = {"single-task": (1,), "jobs of 1-8": tuple(range(1, 9)),
+               "jobs of 1-16": tuple(range(1, 17))}
 PLAN_COST_RTOL = 1e-6
+PEAK_F64_FLOPS = 34e12  # H100 SXM f64 rate outside the tensor cores
 SIM_JOBS = 400
 
 
@@ -2426,6 +2445,20 @@ def plan_table(seed: int = 0):
     return t
 
 
+def plan_inputs(tasks, catalog, device):
+    """``pass_inputs`` of a fleet with interference off, in the default
+    dtype, and the record buffer ``pack_torch`` starts from."""
+    import numpy as np
+    from repro_torch.core import job_rp_sums, reservation_prices
+    from repro_torch.core.engine_torch import _pow2, pass_inputs
+    from repro_torch.core.workloads import NUM_WORKLOADS
+    rp = reservation_prices(tasks, catalog)
+    inputs = pass_inputs(tasks.demand_by_family, tasks.workloads, rp,
+                         job_rp_sums(tasks, rp), catalog,
+                         np.ones((NUM_WORKLOADS, NUM_WORKLOADS)), device=device)
+    return inputs, _pow2(max(256, len(tasks) // 2 + 8), 256)
+
+
 def canon(cfg) -> list:
     return sorted((int(k), tuple(sorted(int(t) for t in ts)))
                   for k, ts in cfg.assignments)
@@ -2451,10 +2484,13 @@ def planner_vs_plain(device) -> dict:
     """The planner phase's gates (see PLAN_SIZES' comment), then at 10^3 a
     type mask (the GPU family out), region caps on the dispersed three-region
     market (the budget the kernel writes back equals the plain version's), a
-    fleet of multi-task jobs (the varied-keys branch) and a record buffer
-    forced to overflow (its kept records and counts equal an unforced
-    call's).  Returns the numpy engine's seconds by size, and the records'
-    largest difference from the plain version's (0 when they agree)."""
+    fleet of multi-task jobs under a throughput table (the varied-keys
+    branch) and a record buffer forced to overflow (its kept records and
+    counts equal an unforced call's).  Returns the numpy engine's seconds by
+    fleet and size, and the records' largest difference from the plain
+    version's (0 when they agree)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     import numpy as np
     import torch
     from repro_torch.core import (aws_catalog, dispersed_demo_regions,
@@ -2467,22 +2503,51 @@ def planner_vs_plain(device) -> dict:
     cat = aws_catalog()
     kw = dict(multi_task_aware=True)
     numpy_s, worst = {}, 0
-    for n in PLAN_GATE_SIZES:
-        tasks = plan_fleet(n)
-        t = time.perf_counter()
-        np_cfg = full_reconfiguration(tasks, cat, None, engine="numpy",
-                                      interference_aware=False, **kw)
-        numpy_s[n] = time.perf_counter() - t
-        for dtype in (torch.float32, torch.float64):
-            with default_dtype(dtype):
-                cfg = full_reconfiguration(tasks, cat, None, engine="torch",
-                                           interference_aware=False, **kw)
-            check(canon(cfg) == canon(np_cfg),
-                  f"the planner's kernel at {n} tasks, {dtype}, interference "
-                  "off: its partition is not the numpy engine's")
-            print(f"[planner] {n} tasks {dtype}, interference off: "
-                  f"{len(cfg.assignments)} instances, the numpy engine's "
-                  f"partition (numpy {numpy_s[n]:.3f} s)")
+    with ProcessPoolExecutor(4, multiprocessing.get_context("spawn"),
+                             initializer=_plan_worker_init,
+                             initargs=(os.path.join(ROOT, "src"),)) as pool:
+        # the kernel against the plain version at PLAN_PLAIN_SIZES, the
+        # plain passes in the workers while the numpy gates run
+        plain = []
+        for fleet, sizes in PLAN_FLEETS.items():
+            for n in PLAN_PLAIN_SIZES:
+                tasks = plan_fleet(n, job_sizes=sizes)
+                for dtype in (torch.float32, torch.float64):
+                    with default_dtype(dtype):
+                        inputs, max_fills = plan_inputs(tasks, cat, device)
+                    kern = _records(pack_fill(*inputs.args,
+                                              max_fills=max_fills), max_fills)
+                    plain.append((fleet, n, dtype, inputs.args[0].shape[0],
+                                  kern, pool.submit(
+                                      _plain_pack,
+                                      [a.cpu().numpy() for a in inputs.args],
+                                      max_fills)))
+        for fleet, sizes in PLAN_FLEETS.items():
+            for n in PLAN_GATE_SIZES:
+                tasks = plan_fleet(n, job_sizes=sizes)
+                t = time.perf_counter()
+                np_cfg = full_reconfiguration(tasks, cat, None, engine="numpy",
+                                              interference_aware=False, **kw)
+                numpy_s[f"{fleet} {n}"] = s = time.perf_counter() - t
+                for dtype in (torch.float32, torch.float64):
+                    with default_dtype(dtype):
+                        cfg = full_reconfiguration(
+                            tasks, cat, None, engine="torch",
+                            interference_aware=False, **kw)
+                    check(canon(cfg) == canon(np_cfg),
+                          f"the planner's kernel at {n} tasks ({fleet}), "
+                          f"{dtype}, interference off: its partition is not "
+                          "the numpy engine's")
+                    print(f"[planner] {n} tasks ({fleet}) {dtype}, "
+                          f"interference off: {len(cfg.assignments)} "
+                          f"instances, the numpy engine's partition (numpy "
+                          f"{s:.3f} s)")
+        for fleet, n, dtype, C, kern, fut in plain:
+            check(_same_records(kern, fut.result()), f"the planner's kernel at "
+                  f"{n} tasks ({fleet}), {dtype}: records, counts or budget "
+                  "differ from the plain version's")
+            print(f"[planner] {n} tasks ({fleet}) {dtype}: {kern[1]} records "
+                  f"over {C} classes (padded), the plain version's")
     tasks, table = plan_fleet(1000), plan_table(0)
     np_cfg = full_reconfiguration(tasks, cat, table, engine="numpy",
                                   interference_aware=True, **kw)
@@ -2491,11 +2556,11 @@ def planner_vs_plain(device) -> dict:
             cfg = full_reconfiguration(tasks, cat, table, engine="torch",
                                        interference_aware=True, **kw)
             if dtype == torch.float64:
-                plain = full_reconfiguration(tasks, cat, table,
-                                             engine="torch:cpu",
-                                             interference_aware=True, **kw)
-                check(canon(cfg) == canon(plain), "the planner's kernel with "
-                      "interference on (f64) is not the plain version's")
+                plain_cfg = full_reconfiguration(tasks, cat, table,
+                                                 engine="torch:cpu",
+                                                 interference_aware=True, **kw)
+                check(canon(cfg) == canon(plain_cfg), "the planner's kernel "
+                      "with interference on (f64) is not the plain version's")
         got, want = cfg.total_hourly_cost(cat), np_cfg.total_hourly_cost(cat)
         check(abs(got - want) <= PLAN_COST_RTOL * abs(want)
               and places_each_once(cfg, tasks),
@@ -2540,9 +2605,9 @@ def planner_vs_plain(device) -> dict:
             b_kern = None if budget is None else budget.copy()
             b_plain = None if budget is None else budget.copy()
             kern = pack_torch(*args, b_kern, device=device)
-            plain = pack_torch(*args, b_plain, device="cpu")
+            plain_out = pack_torch(*args, b_plain, device="cpu")
             check(sorted((k, tuple(sorted(r))) for k, r in kern) ==
-                  sorted((k, tuple(sorted(r))) for k, r in plain),
+                  sorted((k, tuple(sorted(r))) for k, r in plain_out),
                   f"the planner's kernel ({what}) is not the plain version's")
             if budget is not None:
                 check(np.array_equal(b_kern, b_plain), "the region budget "
@@ -2583,92 +2648,117 @@ def _fits_masked(catalog, mask, workload) -> bool:
 
 
 def planner_timing(device) -> dict:
-    """Phase 3 for the planner (f32, the default type; warm; NVIDIA card):
-    at each of PLAN_SIZES the kernel's ms a pack by CUDA events over
-    repeated launches on the same inputs, with its greedy adds and fills
-    (the kernel's own counts) and ns an add; ``full_reconfiguration(engine=
-    "torch")``'s wall ms, host preparation and expansion included; the
-    bound (the pass's bytes once over HBM; the serial chain of adds is what
-    limits the kernel); at 10^3 and 10^4 the plain version on CPU tensors
-    and on CUDA tensors (host clock, synchronised); at 10^3 the one-warp
-    kernel against the block kernel at 32 and 128 threads; at 10^5 one
-    incremental repack of an evacuated instance."""
-    import numpy as np
+    """Phase 3 for the planner (warm; NVIDIA card): at each of PLAN_SIZES,
+    for every fleet of PLAN_FLEETS and in f32 and f64, the kernel ``default_launch``
+    picks (the warp kernel) and the block kernel on the same inputs, each's
+    ms a pack by CUDA events over repeated launches, with the greedy adds
+    and fills (the kernel's own counts) and ns an add, their records equal;
+    ``full_reconfiguration(engine="torch")``'s wall ms and launches,
+    host preparation and expansion included; the bound (the pass's bytes
+    once over HBM; the serial chain of adds is what limits the kernel); at
+    10^3 and 10^4 of the single-task fleet in f32 the plain version on CPU
+    tensors and on CUDA tensors (host clock, synchronised); at 10^5 of it in
+    f32 one incremental repack of an evacuated instance."""
     import torch
     from repro_torch.core import (LiveInstance, aws_catalog,
                                   full_reconfiguration,
-                                  incremental_reconfiguration, job_rp_sums,
-                                  reservation_prices)
-    from repro_torch.core.engine_torch import _pow2, pass_inputs
-    from repro_torch.core.workloads import NUM_WORKLOADS
-    from repro_torch.kernels.pack_fill.kernel import pack_fill
+                                  incremental_reconfiguration)
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.pack_fill.kernel import (default_launch,
+                                                      pack_fill, variant_name)
     from repro_torch.kernels.pack_fill.ref import pack_all_types_ref
     cat = aws_catalog()
     kw = dict(interference_aware=False, multi_task_aware=True)
     out = {}
-    for n in PLAN_SIZES:
-        tasks = plan_fleet(n)
-        if n < 100_000:  # the larger fleets' passes are long enough cold
-            full_reconfiguration(tasks, cat, None, engine="torch", **kw)
-        t = time.perf_counter()
-        cfg = full_reconfiguration(tasks, cat, None, engine="torch", **kw)
-        wall_ms = (time.perf_counter() - t) * 1e3
-        rp = reservation_prices(tasks, cat)
-        args = (tasks.demand_by_family, tasks.workloads, rp,
-                job_rp_sums(tasks, rp), cat,
-                np.ones((NUM_WORKLOADS, NUM_WORKLOADS)))
-        inputs = pass_inputs(*args, device=device)
-        max_fills = _pow2(max(256, n // 2 + 8), 256)
-        stats = torch.empty(4, dtype=torch.int64, device=device)
-        ms = time_ms(lambda: pack_fill(*inputs.args, max_fills=max_fills,
-                                       stats=stats),
-                     {1000: 50, 10_000: 20, 100_000: 3}.get(n, 1), warmup=1)
-        n_rec, _, adds, fills = stats.tolist()
-        C, W = inputs.args[0].shape[0], inputs.args[6].shape[0]
-        nbytes = sum(a.numel() * a.element_size() for a in inputs.args) \
-            + n_rec * (8 + 4 * C) + 4 * inputs.args[12].numel() + 32
-        # an add scores every class: W products and sums, the score's five
-        # operations, the feasibility test
-        bound_ms, bound_by = bound(nbytes, adds * C * (2 * W + 8),
-                                   PEAK_F32_FLOPS)
-        row = {"n_tasks": n, "classes": C, "instances": len(cfg.assignments),
-               "records": n_rec, "adds": adds, "fills": fills, "ms": ms,
-               "ns_per_add": ms * 1e6 / max(adds, 1),
-               "full_reconfiguration_ms": wall_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bytes": nbytes}
-        if n in PLAN_GATE_SIZES:
-            cpu_args = [a.cpu() for a in inputs.args]
-            for where, a in (("cpu", cpu_args), ("cuda", inputs.args)):
-                if n == PLAN_SIZES[0]:  # warm
-                    pack_all_types_ref(*a, max_fills=max_fills)
-                torch.cuda.synchronize(device)
-                t = time.perf_counter()
-                pack_all_types_ref(*a, max_fills=max_fills)
-                torch.cuda.synchronize(device)
-                row[f"plain_{where}_ms"] = (time.perf_counter() - t) * 1e3
-        if n == PLAN_SIZES[0]:
-            row["variants_ms"] = {
-                f"{threads} threads{', one warp' if one else ''}": time_ms(
-                    lambda: pack_fill(*inputs.args, max_fills=max_fills,
-                                      threads=threads, one_warp=one), 50,
-                    warmup=1)
-                for threads, one in ((32, True), (32, False), (128, False))}
-        if n == 100_000:
-            live = [LiveInstance(i, k, tuple(tids))
-                    for i, (k, tids) in enumerate(cfg.assignments)]
-            evac = [live[0].instance_id]
-            incremental_reconfiguration(tasks, live, set(), set(), cat, None,
-                                        evacuate=evac, engine="torch", **kw)
-            t = time.perf_counter()
-            _, fallback = incremental_reconfiguration(
-                tasks, live, set(), set(), cat, None, evacuate=evac,
-                engine="torch", **kw)
-            row["incremental_ms"] = (time.perf_counter() - t) * 1e3
-            row["incremental_fallback"] = fallback
-        out[n] = row
-        print(f"[timing] planner {n} tasks: " + ", ".join(
-            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
-            for k, v in row.items()))
+    for fleet, sizes in PLAN_FLEETS.items():
+        for n in PLAN_SIZES:
+            tasks = plan_fleet(n, job_sizes=sizes)
+            for dtype in (torch.float32, torch.float64):
+                with default_dtype(dtype):
+                    if n < 100_000:  # the larger passes are long enough cold
+                        full_reconfiguration(tasks, cat, None, engine="torch",
+                                             **kw)
+                    LAUNCHES.clear()
+                    t = time.perf_counter()
+                    cfg = full_reconfiguration(tasks, cat, None,
+                                               engine="torch", **kw)
+                    wall_ms = (time.perf_counter() - t) * 1e3
+                    replan_launches = LAUNCHES["pack_fill"]
+                    inputs, max_fills = plan_inputs(tasks, cat, device)
+                args = inputs.args
+                C, W = args[0].shape[0], args[6].shape[0]
+                name = f"{fleet} {n} tasks {str(dtype).split('.')[1]}"
+                row = {"fleet": fleet, "n_tasks": n,
+                       "dtype": str(dtype).split(".")[1], "classes": inputs.C,
+                       "classes_padded": C,
+                       "variant": variant_name(default_launch(C, W)[0]),
+                       "instances": len(cfg.assignments),
+                       "full_reconfiguration_ms": wall_ms,
+                       "replan_launches": replan_launches}
+                iters = {1000: 50, 10_000: 20, 100_000: 3}.get(n, 1)
+                records = {}
+                for kernel, launch in (("warp", {}), ("block", {"per_lane": 0})):
+                    stats = torch.empty(4, dtype=torch.int64, device=device)
+                    last = {}
+
+                    def run():
+                        last["out"] = pack_fill(*args, max_fills=max_fills,
+                                                stats=stats, **launch)
+
+                    ms = time_ms(run, iters, warmup=1)
+                    n_rec, _, adds, fills = stats.tolist()
+                    records[kernel] = _records(last["out"], max_fills)
+                    prefix = "" if kernel == "warp" else "block_"
+                    row[f"{prefix}ms"] = ms
+                    row[f"{prefix}ns_per_add"] = ms * 1e6 / max(adds, 1)
+                check(_same_records(records["warp"], records["block"]),
+                      f"the planner's warp and block kernels disagree at {name}")
+                # the bytes the pass needs, the padding left out: each task
+                # row's key, each real class's demand rows, RP, job RP,
+                # workload and count, P, log P and the types, the budget in
+                # and out, the kept records over the real classes, the stats
+                Cr, F, R = inputs.C, args[0].shape[1], args[0].shape[2]
+                es = args[0].element_size()
+                nbytes = 4 * n + Cr * (F * R * es + 2 * es + 8) \
+                    + sum(a.numel() * a.element_size() for a in args[6:12]) \
+                    + 8 * args[12].numel() \
+                    + min(n_rec, max_fills) * (8 + 4 * Cr) + 32
+                # an add scores every real class: the score's operations and
+                # the feasibility test (interference off: no W-term sum)
+                peak = PEAK_F32_FLOPS if dtype == torch.float32 \
+                    else PEAK_F64_FLOPS
+                row["bound_ms"], row["bound_by"] = bound(nbytes, adds * Cr * 8,
+                                                         peak)
+                row.update(records=n_rec, adds=adds, fills=fills, bytes=nbytes)
+                if fleet == "single-task" and dtype == torch.float32:
+                    if n in PLAN_GATE_SIZES:
+                        cpu_args = [a.cpu() for a in args]
+                        for where, a in (("cpu", cpu_args), ("cuda", args)):
+                            if n == PLAN_SIZES[0]:  # warm
+                                pack_all_types_ref(*a, max_fills=max_fills)
+                            torch.cuda.synchronize(device)
+                            t = time.perf_counter()
+                            pack_all_types_ref(*a, max_fills=max_fills)
+                            torch.cuda.synchronize(device)
+                            row[f"plain_{where}_ms"] = \
+                                (time.perf_counter() - t) * 1e3
+                    if n == 100_000:
+                        live = [LiveInstance(i, k, tuple(tids))
+                                for i, (k, tids) in enumerate(cfg.assignments)]
+                        evac = [live[0].instance_id]
+                        incremental_reconfiguration(
+                            tasks, live, set(), set(), cat, None,
+                            evacuate=evac, engine="torch", **kw)
+                        t = time.perf_counter()
+                        _, fallback = incremental_reconfiguration(
+                            tasks, live, set(), set(), cat, None,
+                            evacuate=evac, engine="torch", **kw)
+                        row["incremental_ms"] = (time.perf_counter() - t) * 1e3
+                        row["incremental_fallback"] = fallback
+                out[name] = row
+                print(f"[timing] planner {name}: " + ", ".join(
+                    f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in row.items()))
     return out
 
 
@@ -2733,11 +2823,13 @@ def planner_simulation(device) -> dict:
                                   aws_catalog, engine_torch)
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.pack_fill import ops
+    from repro_torch.kernels.pack_fill.kernel import VARIANT_LAUNCHES
 
     def simulate(scheduler):
         jobs = alibaba_like_trace(n_jobs=SIM_JOBS, seed=42,
                                   duration_model="gavel")
         LAUNCHES.clear()
+        VARIANT_LAUNCHES.clear()
         t = time.perf_counter()
         m = Simulator(cat, jobs, scheduler, SimConfig(seed=1)).run()
         wall = time.perf_counter() - t
@@ -2779,6 +2871,7 @@ def planner_simulation(device) -> dict:
             with default_dtype(torch.float64):
                 eva, eva_wall, eva_done, launched = simulate(
                     EvaScheduler(cat, engine="torch"))
+                variant_launches = dict(VARIANT_LAUNCHES)
         finally:
             ops.pack_all_types, engine_torch.pack_torch = real_ops, real_pack
         t = time.perf_counter()
@@ -2800,7 +2893,8 @@ def planner_simulation(device) -> dict:
     print(f"[planner] simulation: {SIM_JOBS} jobs finished in {eva_wall:.2f} s "
           f"(engine='torch', f64; {hooks_s[0]:.2f} s of it the checks' copies "
           f"and hand-offs), {len(packs)} packs, {len(launches)} "
-          f"launches, every launch's records the plain version's; "
+          f"launches ({variant_launches}), every launch's records the plain "
+          f"version's; "
           f"{int(differ.sum())} packs cost more than {PLAN_COST_RTOL:g} "
           f"relative away from the numpy engine's (largest {rel.max():.3e}), "
           f"{unplaced} place other tasks; the checks' tail {wait_s:.1f} s")
@@ -2812,7 +2906,8 @@ def planner_simulation(device) -> dict:
         runs[name] = (m, wall, done)
     base = runs["no-packing"][0]
     result = {"jobs": SIM_JOBS, "packs": len(packs),
-              "launches": len(launches), "checks_in_wall_s": hooks_s[0],
+              "launches": len(launches), "variant_launches": variant_launches,
+              "checks_in_wall_s": hooks_s[0],
               "numpy_cost_differs": int(differ.sum()),
               "numpy_cost_max_rel": float(rel.max()),
               "numpy_rows_differ": int(unplaced),
@@ -2837,24 +2932,37 @@ def _same_records(got, want) -> bool:
 
 def planner_entry(errs: dict, times: dict, sim: dict) -> dict:
     """The kernels line's entry for the packing pass: times at the 10^4-task
-    fleet (f32), every size under "shapes", launches from the simulation."""
-    main = times[10_000]
+    single-task fleet (f32) of the warp kernel that the main path runs, both
+    kernel variants by name, every fleet, size and type under "shapes",
+    launches from the simulation (by variant under "variants")."""
+    main = times["single-task 10000 tasks float32"]
+    warp = "src/repro_torch/kernels/pack_fill/csrc/pack_fill.cu"
     return {
-        "name": "pack_fill", "route": "cuda",
-        "source": "src/repro_torch/kernels/pack_fill/csrc/pack_fill.cu",
+        "name": "pack_fill", "route": "cuda", "source": warp,
         "replaces": "src/repro/core/engine_jax.py:121",
         "note": "jitted lax (a fori_loop over types, while_loops of fills and "
                 "greedy adds), not Pallas: engine_jax._pack_all_types",
-        "design": "one block walks every type, fill and add; classes spread "
-                  "over the threads; per add one reduction of (score, ties, "
-                  "lowest row) and a barrier; one warp for at most 32 classes",
+        "design": "one launch walks every type, fill and add; up to 256 "
+                  "classes and 16 workloads the warp kernel (L classes a "
+                  "lane in registers, an add's pick by a max of five "
+                  "shuffle rounds, a ballot and, on a tie, a redux; no "
+                  "shared memory written, no barrier in an add), else the "
+                  "block kernel (classes over threads, a block reduction "
+                  "and barriers per add)",
         "launches": sim["launches"], "max_abs_err": errs["max_abs_err"],
-        "shape": "10,000 tasks (bench_micro fleet), f32",
+        "shape": "10,000 tasks (bench_micro fleet), f32, " + main["variant"],
         "ms": main["ms"], "plain_ms": main["plain_cuda_ms"],
         "plain_cpu_ms": main["plain_cpu_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None,
-        "limited_by": "the serial chain of greedy adds, each a reduction and "
-                      "a barrier",
+        "limited_by": "the serial chain of greedy adds",
+        "variants": [
+            {"name": "pack_fill_warp", "kernel": "pack_fill_warp_kernel<T, L>",
+             "source": warp, "ms": main["ms"],
+             "launches": sum(v for k, v in sim["variant_launches"].items()
+                             if k.startswith("warp"))},
+            {"name": "pack_fill_block", "kernel": "pack_fill_block_kernel<T>",
+             "source": warp, "ms": main["block_ms"],
+             "launches": sim["variant_launches"].get("block", 0)}],
         "numpy_engine_s": errs["numpy_s"],
         "shapes": list(times.values()),
         "simulation": {k: v for k, v in sim.items() if k != "runs"}}
@@ -2896,6 +3004,7 @@ def main() -> int:
     ssd_time = ssd_timing(device)
     ssd_bf16_time = ssd_bf16_timing(device)
     rglru_time = rglru_timing(device)
+    rglru_time["batch_1"] = rglru_timing(device, RGLRU_TRAIN_B1)
     bwd_errs = bwd_kernel_vs_plain(device)
     rglru_bwd_err = rglru_bwd_vs_plain(device)
     ssd_bwd_errs = ssd_bwd_vs_plain(device)
@@ -2909,6 +3018,7 @@ def main() -> int:
     cluster_bwd_time = {shape: bwd_timing(device, shape)
                         for shape in CLUSTER_SHAPES}
     rglru_bwd_time = rglru_bwd_timing(device)
+    rglru_bwd_time["batch_1"] = rglru_bwd_timing(device, RGLRU_TRAIN_B1)
     ssd_bwd_time = ssd_bwd_timing(device)
     plan_errs = planner_vs_plain(device)
     plan_time = planner_timing(device)

@@ -50,7 +50,7 @@ from repro_torch.kernels.flash_attention.kernel import (BWD_KERNELS, HEAD_DIMS,
                                                         flash_attention_fwd,
                                                         launch_bwd)
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.pack_fill.kernel import pack_fill
+from repro_torch.kernels.pack_fill.kernel import PER_LANE, pack_fill
 from repro_torch.kernels.pack_fill.ref import pack_all_types_ref
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref, lse_ref)
@@ -931,18 +931,21 @@ def test_local_cloud_trains_reduced_jobs_on_card(cuda_device, tmp_path):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case,max_fills", PACK_CASES)
 def test_pack_fill_vs_plain_on_card(cuda_device, case, max_fills, dtype):
-    """The packing kernel, at its default launch and at a block of 128
-    threads, against ``pack_all_types_ref`` from the same inputs: the budget
-    left, every kept record, the record count and the overflow flag equal,
-    one launch each."""
+    """The packing kernel at its default launch, the warp kernel at every L
+    of PER_LANE with 32 L >= C, and the block kernel at 128 threads, against
+    ``pack_all_types_ref`` from the same inputs: the budget left, every kept
+    record, the record count and the overflow flag equal, one launch each."""
     args = pack_case(case, dtype)
     want = pack_all_types_ref(*args, max_fills=max_fills)
     n = int(want[4])
     kept = min(n, max_fills)
-    for threads in (None, 128):
+    C = args[0].shape[0]
+    for per_lane, threads in ([(None, None)] + [(L, None) for L in PER_LANE
+                                                 if 32 * L >= C] + [(0, 128)]):
         LAUNCHES.clear()
         got = [t.cpu() for t in pack_fill(*(a.to(cuda_device) for a in args),
-                                          max_fills=max_fills, threads=threads)]
+                                          max_fills=max_fills,
+                                          per_lane=per_lane, threads=threads)]
         assert dict(LAUNCHES) == {"pack_fill": 1}
         assert torch.equal(got[0], want[0])
         assert int(got[4]) == n and bool(got[5]) == bool(want[5])

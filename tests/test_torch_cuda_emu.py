@@ -1,9 +1,10 @@
 """The kernels' own C++ on the CPU: ``csrc/rglru_scan.cu``,
 ``csrc/ssd_bwd.cu``, the tensor-core ``csrc/ssd_bwd_tc.cu`` and the packing
 pass ``csrc/pack_fill.cu`` built with g++
-against ``tools/cuda_emu/cuda_emu.h`` (one thread per CUDA thread, barriers
-for ``__syncthreads`` and the warp shuffles, and for ``ssd_bwd_tc.cu`` its
-cp.async, ldmatrix and mma.sync), called through their ``extern "C"``
+against ``tools/cuda_emu/cuda_emu.h`` (one fiber per CUDA thread, barriers
+for ``__syncthreads`` and the warp shuffles, votes and reductions, and for
+``ssd_bwd_tc.cu`` its cp.async, ldmatrix and mma.sync), called through their
+``extern "C"``
 entries with CPU tensors, and held against their plain versions at small
 shapes, at the card's tolerances (``tests/test_torch_cuda.py``): the RG-LRU
 kernels to the bit in f32 (the same rounded sums and products in the same
@@ -12,8 +13,10 @@ largest magnitude (dA: of the sum of its terms' magnitudes; dchunk_in and
 dh0 elementwise) in f32, 2e-2 with bf16 inputs; the packing pass's records,
 budget and counts equal to ``pack_all_types_ref``'s (the same rounded
 products and sums in the same order; f32 and f64, interference on and off,
-a type mask, region budgets, an overflowing record buffer, both launch
-variants and the per-class state in global scratch).  What the emulation cannot
+a type mask, region budgets, more than 64 classes, an overflowing record
+buffer, the warp kernel at every classes-a-lane count that covers the
+fleet, and the block kernel, with its per-class state in shared memory and
+in global scratch).  What the emulation cannot
 show (speed, registers, spills, the card's own compiler and its tensor
 cores' own rounding of sums) ``chip_smoke.py`` shows.
 """
@@ -27,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.pack_fill.kernel import PER_LANE
 from repro_torch.kernels.pack_fill.ref import pack_all_types_ref
 from torch_pack_cases import PACK_CASES, pack_case
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref, rglru_scan_ref
@@ -231,9 +235,10 @@ def test_ssd_bwd_chunk_tensor_cores_emulated(libs, Bt, S, H, P, G, N, chunk, hb)
 def test_pack_fill_emulated(libs, case, max_fills, dtype):
     """``pack_fill.cu`` against ``pack_all_types_ref`` from the same inputs:
     the budget left, every kept record, the record count and the overflow
-    flag equal, at one warp (shuffles alone), at a block of two warps
-    (shared-memory partials and barriers) and with the per-class state in a
-    global scratch buffer."""
+    flag equal, for the warp kernel at every L of PER_LANE with 32 L >= C
+    (registers and warp collectives alone), and for the block kernel at two
+    warps (shared-memory partials and barriers) and with its per-class state
+    in a global scratch buffer."""
     args = pack_case(case, dtype)
     C, F, R = args[0].shape
     W, K, M, NR = args[6].shape[0], args[8].shape[0], args[5].shape[1], \
@@ -243,7 +248,10 @@ def test_pack_fill_emulated(libs, case, max_fills, dtype):
     assert n > max_fills if max_fills == 3 else n <= max_fills
     kept = min(n, max_fills)
     scratch = torch.zeros(1 << 16, dtype=torch.uint8)
-    for threads, one_warp, scr in ((32, 1, None), (64, 0, None), (32, 0, scratch)):
+    launches = [(L, 32, None) for L in PER_LANE if 32 * L >= C]
+    launches += [(0, 64, None), (0, 32, scratch)]
+    assert case != "many" or launches[0][0] == 4  # > 64 classes
+    for per_lane, threads, scr in launches:
         budget = torch.empty_like(args[12])
         rec_type = torch.full((max_fills,), -1, dtype=torch.int32)
         rec_rep = torch.zeros(max_fills, dtype=torch.int32)
@@ -251,7 +259,7 @@ def test_pack_fill_emulated(libs, case, max_fills, dtype):
         stats = torch.zeros(4, dtype=torch.int64)
         assert libs["pack"].pack_fill(
             *map(_ptr, args), C, F, R, M, W, K, NR, max_fills,
-            int(dtype == torch.float64), threads, one_warp,
+            int(dtype == torch.float64), per_lane, threads,
             *map(_ptr, (budget, rec_type, rec_rep, rec_comp, stats, scr)),
             None) == 0
         assert torch.equal(budget, want[0])

@@ -10,8 +10,8 @@ __shared__`` array a pointer into the emulator's buffer; g++ (C++20,
 round apart; the source's own directory on the include path, for its headers)
 builds the rest as it stands into a shared library with the
 same ``extern "C"`` entries, which ctypes loads and calls with CPU tensors'
-``data_ptr()``.  It takes a few seconds; a run takes one thread per CUDA
-thread, so keep the shapes small.
+``data_ptr()``.  It takes a few seconds; a run switches between one fiber
+per CUDA thread on one core, so keep the shapes small.
 """
 import re
 import subprocess

@@ -1,9 +1,16 @@
 // CPU emulation of the small part of CUDA that the port's kernels use
 // (rglru_scan.cu, ssd_bwd.cu, ssd_bwd_tc.cu, pack_fill.cu), so that their C++
 // can be run and held against the plain versions where there is no card and
-// no nvcc: one std::thread per CUDA thread, std::barrier for __syncthreads, a
-// per-warp barrier for __syncwarp and the 32- and 64-bit shuffles; blocks run one after
-// another, so a kernel's __shared__ arrays become static ones.  Dynamic
+// no nvcc: one fiber (ucontext) per CUDA thread, all of a block's fibers on
+// the calling thread, switched at __syncthreads, at __syncwarp and in the 32-
+// and 64-bit shuffles, which wait at their warp's barrier (a fiber that
+// reaches a barrier first yields until its warp or block has arrived; the
+// order is fixed, so a run is deterministic, and a block whose fibers all
+// wait with none arriving aborts as a deadlock); blocks run one after
+// another, so a kernel's __shared__ arrays become static ones.  The warp
+// votes (__ballot_sync, __any_sync, __all_sync) and the 32-bit integer
+// reductions (__reduce_min_sync, __reduce_max_sync, __reduce_add_sync) go
+// through the warp's barrier as the shuffles do; __popc and __ffs are g++'s.  Dynamic
 // shared memory is poisoned with NaN bits before each block.  Inline PTX does
 // not build.  A source that wraps its PTX in functions may leave them to this
 // header where CUDA_EMU_TENSOR_CORES is defined (ssd_bwd_tc.cu): cp.async
@@ -13,7 +20,7 @@
 // warp-collective through the warp's barrier.
 // tools/cuda_emu/build.py turns a .cu file into a shared library against it.
 #pragma once
-#include <barrier>
+#include <ucontext.h>
 #include <cmath>
 #include <math.h>
 #include <cstdint>
@@ -21,7 +28,6 @@
 #include <cstdlib>
 #include <cstdio>
 #include <functional>
-#include <thread>
 #include <vector>
 #include <memory>
 #include <climits>
@@ -37,7 +43,7 @@
 
 struct dim3 { unsigned x = 1, y = 1, z = 1; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint3e { unsigned x, y, z; };
-inline thread_local uint3e threadIdx, blockIdx;
+inline uint3e threadIdx, blockIdx;  // the running fiber's, set at each switch
 inline dim3 blockDim, gridDim;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -72,17 +78,51 @@ using std::min;
 using std::max;
 inline unsigned char emu_dyn_smem[256 * 1024] __attribute__((aligned(16)));
 
+struct EmuCopy { uint32_t dst; const void* src; int size, src_size; };
+
+struct EmuFiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  bool done = false;
+};
+
 struct EmuBlock {
-  std::barrier<>* bar;
-  std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+  int nt = 0;
+  std::vector<EmuFiber> fibers;
+  ucontext_t sched;
+  int block_arrived = 0;
+  unsigned block_gen = 0;
+  std::vector<int> warp_arrived;
+  std::vector<unsigned> warp_gen;
+  uint64_t progress = 0;      // arrivals, releases and finished fibers
   std::vector<uint64_t> xch;  // per thread exchange slot (32 or 64 bits)
   std::vector<uint32_t> tc;   // per thread, one mma.sync's six operand registers
+  std::vector<std::vector<EmuCopy>> open_copies;                 // per thread
+  std::vector<std::vector<std::vector<EmuCopy>>> copy_groups;    // per thread
+  std::function<void()> body;
 };
 inline EmuBlock* emu_block;
-inline thread_local int emu_tid;
+inline int emu_tid;  // the running fiber's thread, set at each switch
 
-inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) { emu_block->warp_bars[emu_tid / 32]->arrive_and_wait(); }
+inline void emu_yield() { swapcontext(&emu_block->fibers[emu_tid].ctx, &emu_block->sched); }
+
+// Arrive at a barrier of n fibers; the last to arrive releases the others.
+inline void emu_wait(int& arrived, unsigned& gen, int n) {
+  ++emu_block->progress;
+  const unsigned g = gen;
+  if (++arrived == n) {
+    arrived = 0;
+    ++gen;
+    return;
+  }
+  while (gen == g) emu_yield();
+}
+
+inline void __syncthreads() { emu_wait(emu_block->block_arrived, emu_block->block_gen, emu_block->nt); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  const int w = emu_tid / 32;
+  emu_wait(emu_block->warp_arrived[w], emu_block->warp_gen[w], 32);
+}
 
 template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int mask, int width = 32) {
@@ -112,28 +152,94 @@ inline T __shfl_sync(unsigned, T v, int srcLane, int width = 32) {
   return out;
 }
 
+// The warp's votes and integer reductions: every lane posts its value, the
+// warp's barrier, every lane reads all 32, the barrier again (as the
+// shuffles); the mask is taken to be the full warp.
+template <class T, class F>
+inline T emu_warp_fold(T v, T init, F f) {
+  const int base = emu_tid - emu_tid % 32;
+  uint64_t u = 0; std::memcpy(&u, &v, sizeof(T));
+  emu_block->xch[emu_tid] = u;
+  __syncwarp();
+  T acc = init;
+  for (int l = 0; l < 32; ++l) {
+    T x; const uint64_t r = emu_block->xch[base + l]; std::memcpy(&x, &r, sizeof(T));
+    acc = f(acc, x, l);
+  }
+  __syncwarp();
+  return acc;
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  return emu_warp_fold<unsigned>(pred != 0, 0u, [](unsigned a, unsigned x, int l) { return a | (x << l); });
+}
+inline int __any_sync(unsigned m, int pred) { return __ballot_sync(m, pred) != 0; }
+inline int __all_sync(unsigned m, int pred) { return __ballot_sync(m, pred) == 0xffffffffu; }
+template <class T> inline T __reduce_min_sync(unsigned, T v) {
+  static_assert(sizeof(T) == 4, "32-bit reductions only");
+  return emu_warp_fold<T>(v, v, [](T a, T x, int) { return x < a ? x : a; });
+}
+template <class T> inline T __reduce_max_sync(unsigned, T v) {
+  static_assert(sizeof(T) == 4, "32-bit reductions only");
+  return emu_warp_fold<T>(v, v, [](T a, T x, int) { return x > a ? x : a; });
+}
+template <class T> inline T __reduce_add_sync(unsigned, T v) {
+  static_assert(sizeof(T) == 4, "32-bit reductions only");
+  return emu_warp_fold<T>(v, T(0), [](T a, T x, int) { return (T)(a + x); });
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+
+inline void emu_fiber_entry() {
+  emu_block->body();
+  emu_block->fibers[emu_tid].done = true;
+  ++emu_block->progress;
+}  // returns to the scheduler through uc_link
+
 template <class K, class... Args>
 inline void emu_launch(K kernel, dim3 grid, dim3 block, size_t, cudaStream_t, Args... args) {
+  constexpr size_t kStack = 1 << 20;  // touched pages only
   blockDim = block; gridDim = grid;
   const int nt = block.x * block.y * block.z;
   if (nt % 32) { fprintf(stderr, "emu: block of %d threads\n", nt); abort(); }
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
-        std::barrier<> bar(nt);
-        EmuBlock eb; eb.bar = &bar; eb.xch.assign(nt, 0); eb.tc.assign(6 * nt, 0);
-        for (int w = 0; w < nt / 32; ++w) eb.warp_bars.emplace_back(new std::barrier<>(32));
+        EmuBlock eb;
+        eb.nt = nt;
+        eb.fibers = std::vector<EmuFiber>(nt);
+        eb.warp_arrived.assign(nt / 32, 0);
+        eb.warp_gen.assign(nt / 32, 0);
+        eb.xch.assign(nt, 0);
+        eb.tc.assign(6 * nt, 0);
+        eb.open_copies.resize(nt);
+        eb.copy_groups.resize(nt);
+        eb.body = [&] { kernel(args...); };
         emu_block = &eb;
         std::memset(emu_dyn_smem, 0xff, sizeof(emu_dyn_smem));  // poison
-        std::vector<std::thread> ts;
-        for (int t = 0; t < nt; ++t)
-          ts.emplace_back([&, t] {
+        for (EmuFiber& f : eb.fibers) {
+          f.stack.reset(new char[kStack]);
+          getcontext(&f.ctx);
+          f.ctx.uc_stack.ss_sp = f.stack.get();
+          f.ctx.uc_stack.ss_size = kStack;
+          f.ctx.uc_link = &eb.sched;
+          makecontext(&f.ctx, emu_fiber_entry, 0);
+        }
+        for (int live = nt; live > 0;) {
+          const uint64_t before = eb.progress;
+          for (int t = 0; t < nt; ++t) {
+            if (eb.fibers[t].done) continue;
             emu_tid = t;
             threadIdx = {(unsigned)(t % block.x), (unsigned)((t / block.x) % block.y), (unsigned)(t / (block.x * block.y))};
             blockIdx = {bx, by, bz};
-            kernel(args...);
-          });
-        for (auto& th : ts) th.join();
+            swapcontext(&eb.sched, &eb.fibers[t].ctx);
+            live -= eb.fibers[t].done;
+          }
+          if (live > 0 && eb.progress == before) {
+            fprintf(stderr, "emu: deadlock, %d threads wait at barriers no thread reaches\n", live);
+            abort();
+          }
+        }
+        emu_block = nullptr;
       }
 }
 
@@ -153,26 +259,24 @@ inline uint32_t smem_addr(const void* p) {
   return (uint32_t)(static_cast<const unsigned char*>(p) - emu_dyn_smem);
 }
 
-struct EmuCopy { uint32_t dst; const void* src; int size, src_size; };
-inline thread_local std::vector<EmuCopy> emu_open_copies;
-inline thread_local std::vector<std::vector<EmuCopy>> emu_copy_groups;
-
 inline void emu_cp_async(uint32_t dst, const void* src, int size, bool valid) {
-  emu_open_copies.push_back({dst, src, size, valid ? size : 0});
+  emu_block->open_copies[emu_tid].push_back({dst, src, size, valid ? size : 0});
 }
 inline void cp_async16(uint32_t dst, const void* src, bool valid) { emu_cp_async(dst, src, 16, valid); }
 inline void cp_async4(uint32_t dst, const void* src, bool valid) { emu_cp_async(dst, src, 4, valid); }
 inline void cp_async_commit() {
-  emu_copy_groups.push_back(std::move(emu_open_copies));
-  emu_open_copies.clear();
+  std::vector<EmuCopy>& open = emu_block->open_copies[emu_tid];
+  emu_block->copy_groups[emu_tid].push_back(std::move(open));
+  open.clear();
 }
 template <int N> inline void cp_async_wait() {
-  while (emu_copy_groups.size() > (size_t)N) {
-    for (const EmuCopy& c : emu_copy_groups.front()) {
+  std::vector<std::vector<EmuCopy>>& groups = emu_block->copy_groups[emu_tid];
+  while (groups.size() > (size_t)N) {
+    for (const EmuCopy& c : groups.front()) {
       std::memset(emu_dyn_smem + c.dst, 0, c.size);
       if (c.src_size) std::memcpy(emu_dyn_smem + c.dst, c.src, c.src_size);
     }
-    emu_copy_groups.erase(emu_copy_groups.begin());
+    groups.erase(groups.begin());
   }
 }
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """``chip_smoke.py``'s planner phases alone, on one NVIDIA GPU (no JAX
 needed): the packing kernel (``kernels/pack_fill``) against the numpy
-engine and its plain version, its times at 10^3-10^6 tasks, and the
-400-job trace-driven simulation with Eva on the kernel; then the kernels
-line's ``pack_fill`` entry as JSON.
+engine and its plain version, the warp and block kernels' times at
+10^3-10^6 tasks of each fleet of ``chip_smoke.PLAN_FLEETS`` (single-task,
+jobs of 1-8 and of 1-16 tasks) in f32 and f64, and the 400-job trace-driven simulation with Eva on the kernel; then
+the kernels line's ``pack_fill`` entry as JSON.
 
     python3 tools/planner_check.py [--ssd]
 
