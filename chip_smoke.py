@@ -115,7 +115,11 @@ Phases; any that fails ends the run with a non-zero exit:
      2048, random weights) for a few steps, each step with 56 flash_attn_fwd
      launches (28 layers, and 28 again in the rematerialised recompute) and
      28 of each backward kernel, finite losses, then a checkpoint and a
-     resume that starts at the saved step; kernel against plain in the
+     resume that starts at the saved step, then the same launcher with
+     ``--mesh 1x1`` (``mesh_train_and_check``: DTensor parameters, moments
+     and batch on a mesh of the one card) for MESH_STEPS steps, its losses
+     those of the run without a mesh to the bit, the same launches; kernel
+     against plain in the
      model: one step's loss and every gradient leaf in f32 compute (gated),
      every layer's attention backward in bf16 (gated) and the bf16
      gradients end to end (printed, not gated); then the same launcher trains
@@ -133,6 +137,11 @@ Phases; any that fails ends the run with a non-zero exit:
      worker processes), the launches by kernel variant, each pack's cost
      against the numpy engine's
      printed, and the same trace under the numpy engine and No-Packing;
+     then the dry run (``repro_torch.launch.dryrun``) of DRYRUN_CELLS at
+     full width on the production meshes (16 x 16, 2 x 16 x 16), traced on
+     fake CUDA tensors over a fake process group (``dryrun_and_check``):
+     each cell's FLOPs, kernel FLOPs, useful_ratio, collective bytes, state
+     bytes and bottleneck a device, nothing allocated on the card;
   5. a JSON line per the kernel table, then the last line
      ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -228,6 +237,25 @@ PATHS = {
     "granite-moe-3b-a800m": {"flash_attn_fwd": 32},
     "whisper-medium": {"flash_attn_fwd": 48},
 }
+
+
+# The train launcher on a mesh (``--mesh 1x1``, this process's one device):
+# full-width qwen3-0.6b at its training cell's batch, MESH_STEPS steps, held
+# to the losses of the same run without a mesh, bit for bit: on a 1 x 1 mesh
+# every placement is replicated and each operation runs on the whole tensor,
+# the one without a mesh runs (the launches of TRAIN_PATHS each step).
+MESH_ARCH, MESH_STEPS = "qwen3-0.6b", 3
+# The dry run's cells on the production meshes, traced on fake CUDA tensors
+# over a fake process group (no data; nothing allocated on the card): (arch,
+# shape, multi_pod, profile, the kernels the step traces).  granite-moe's 24
+# heads do not divide the 16-way model axis, so its attention is the
+# context-parallel einsum (no kernel); decode runs none.
+DRYRUN_CELLS = (
+    ("qwen3-0.6b", "train_4k", False, "2d", True),
+    ("granite-moe-3b-a800m", "train_4k", False, "2d", False),
+    ("mamba2-780m", "train_4k", True, "2d", True),
+    ("command-r-35b", "decode_32k", False, "inference-tp", False),
+)
 
 
 def train_argv(arch: str, steps: int, *extra: str) -> list:
@@ -494,6 +522,20 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def memory_check() -> None:
+    """The card's memory as ``nvidia-smi`` reports it, which the dry run's
+    roofline takes as the HBM a device holds (``roofline.HBM_BYTES``)."""
+    from repro_torch.launch import roofline
+    mib = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.total",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"[card] memory.total {mib} MiB; roofline.HBM_BYTES "
+          f"{roofline.HBM_BYTES} bytes")
+    check(int(mib) * 2 ** 20 == roofline.HBM_BYTES,
+          f"the card holds {mib} MiB, the roofline {roofline.HBM_BYTES} bytes")
 
 
 def ptxas_summary(log: str) -> list:
@@ -2968,6 +3010,120 @@ def planner_entry(errs: dict, times: dict, sim: dict) -> dict:
         "simulation": {k: v for k, v in sim.items() if k != "runs"}}
 
 
+def mesh_train_and_check(device, plain: dict) -> dict:
+    """Phase 4: ``repro_torch.launch.train --mesh 1x1`` on full-width
+    MESH_ARCH (the parameters, moments and batch as DTensors, the step under
+    ``mesh_context``): each step's launches are TRAIN_PATHS's and its losses
+    those of ``plain`` (the run without a mesh, its first MESH_STEPS steps),
+    to the bit.  Returns the run's numbers beside the plain run's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import train
+
+    want = TRAIN_PATHS[MESH_ARCH]
+    LAUNCHES.clear()
+    stats = train.main(train_argv(MESH_ARCH, MESH_STEPS, "--mesh", "1x1"))
+    launches = dict(LAUNCHES)
+    del stats["state"]
+    check(not dist.is_initialized(), "the launcher left its process group")
+    for i, per_step in enumerate(stats["launches"]):
+        check(per_step == want, f"mesh 1x1 step {i + 1} launched {per_step}, "
+              f"expected {want}")
+    check(launches == {k: n * MESH_STEPS for k, n in want.items()},
+          f"mesh 1x1 training launched {launches}")
+    ref = plain["losses"][:MESH_STEPS]
+    gap = max(abs(a - b) for a, b in zip(stats["losses"], ref))
+    out = {"arch": MESH_ARCH, "batch": TRAIN_CELLS[MESH_ARCH][0],
+           "seq": PROMPT, "steps": MESH_STEPS, "losses": stats["losses"],
+           "plain_losses": ref, "max_loss_gap": gap,
+           "step_ms": stats["step_ms"],
+           "plain_step_ms": plain["step_ms"][:MESH_STEPS],
+           "max_memory_allocated": stats["max_memory_allocated"],
+           "plain_max_memory_allocated": plain["max_memory_allocated"],
+           "launches_per_step": stats["launches"][0]}
+    print("[mesh] " + json.dumps(out))
+    print(f"[mesh] {MESH_ARCH} --mesh 1x1, batch {out['batch']} x {PROMPT}: "
+          f"losses {stats['losses']} (without a mesh {ref}; largest gap "
+          f"{gap}); step ms {stats['step_ms']} (without a mesh "
+          f"{out['plain_step_ms']}); launches per step {out['launches_per_step']}")
+    check(stats["losses"] == ref, f"mesh 1x1 losses {stats['losses']} are not "
+          f"those of the run without a mesh {ref}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_and_check(device) -> dict:
+    """Phase 4: ``repro_torch.launch.dryrun``'s DRYRUN_CELLS at full width
+    on the production meshes, traced on fake CUDA tensors: positive FLOPs a
+    device, collective bytes on every cell, the kernels' custom ops traced
+    where the step runs them, state bytes within the card's memory, and
+    nothing allocated on the card.  First a sharded matmul on a 2 x 2 fake
+    mesh counts its shard's FLOPs exactly (DTensor's global-shape shape runs
+    are not counted).  Returns the cells."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import fake_process_group, make_mesh
+    from repro_torch.launch.trace_analysis import analyze_step
+    from repro_torch.models.sharding import P, distribute
+
+    before = torch.cuda.memory_allocated(device)
+    with fake_process_group(4):
+        mesh = make_mesh((2, 2), ("data", "model"), "cuda")
+        with FakeTensorMode():
+            x = distribute(torch.empty(8, 32, device="cuda"), mesh,
+                           P("data", None))
+            w = distribute(torch.empty(32, 16, device="cuda"), mesh,
+                           P(None, "model"))
+            mm = analyze_step(lambda: x @ w)
+    check(mm["flops"] == 2 * 4 * 32 * 8 and mm["collective_bytes"] == 0,
+          f"a (4 x 32) @ (32 x 8) shard counted {mm}")
+    cells = {}
+    for arch, shape, multi_pod, profile, kernels in DRYRUN_CELLS:
+        r = run_cell(arch, shape, multi_pod=multi_pod, profile=profile,
+                     device="cuda")
+        row = r["roofline"]
+        key = f"{arch} {shape} {r['mesh_shape']} {profile}"
+        cells[key] = {
+            "n_chips": r["n_chips"], "flops_per_device": r["hlo_flops"],
+            "kernel_flops_per_device": r["kernel_flops"],
+            "useful_ratio": row["useful_ratio"],
+            "collective_bytes_per_device": r["collective_bytes"],
+            "collective_by_kind": r["collective_by_kind"],
+            "collective_ops": r["collective_ops"],
+            "state_bytes_per_device": r["state_bytes_per_device"],
+            "hbm_bytes": r["hbm_bytes"], "bottleneck": row["bottleneck"],
+            "t_compute_s": row["t_compute_s"], "t_memory_s": row["t_memory_s"],
+            "t_collective_s": row["t_collective_s"],
+            "roofline_frac": row["roofline_frac"], "trace_s": r["trace_s"],
+            "collective_sites": r["collective_sites"]}
+        c = cells[key]
+        print(f"[dryrun] {key}: flops per device {c['flops_per_device']:.6g} "
+              f"(kernels {c['kernel_flops_per_device']:.6g})")
+        print(f"[dryrun] {key}: useful_ratio {c['useful_ratio']:.6g}")
+        print(f"[dryrun] {key}: collective bytes per device "
+              f"{c['collective_bytes_per_device']} {c['collective_by_kind']}")
+        print(f"[dryrun] {key}: collective bytes by the line that issued "
+              f"them {c['collective_sites']}")
+        print(f"[dryrun] {key}: state bytes per device "
+              f"{c['state_bytes_per_device']} of {c['hbm_bytes']}")
+        print(f"[dryrun] {key}: bottleneck {c['bottleneck']} (compute "
+              f"{c['t_compute_s']:.6g} s, memory {c['t_memory_s']:.6g} s, "
+              f"collective {c['t_collective_s']:.6g} s); traced in "
+              f"{c['trace_s']:.1f} s")
+        check(c["flops_per_device"] > 0 and c["collective_bytes_per_device"] > 0,
+              f"dry run {key}: {c}")
+        check((c["kernel_flops_per_device"] > 0) == kernels,
+              f"dry run {key}: kernel flops {c['kernel_flops_per_device']}")
+        check(c["state_bytes_per_device"]["total"] <= c["hbm_bytes"],
+              f"dry run {key}: the state does not fit")
+    check(torch.cuda.memory_allocated(device) == before,
+          "the dry run allocated on the card")
+    print("[dryrun] " + json.dumps(cells))
+    return cells
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2985,6 +3141,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     print(f"[card] {card_line()}")
+    memory_check()
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda}: "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t = time.perf_counter()
@@ -3025,11 +3182,15 @@ def main() -> int:
     launches = {arch: serve_and_check(device, arch) for arch in PATHS}
     for arch in TRAIN_CELLS:
         key = f"{arch} training"
-        launches[key] = train_and_check(device, arch)["launches"]
+        trained = train_and_check(device, arch)
+        launches[key] = trained["launches"]
+        if arch == MESH_ARCH:
+            mesh_train_and_check(device, trained["stats"])
         launches[key]["f32 compute"] = grad_parity(device, arch)
     cluster = cluster_and_check(device)
     launches["physical mode"] = physical = cluster["launches"]
     plan_sim = planner_simulation(device)
+    dryrun_and_check(device)
     trained_launches = [n for k, n in launches.items() if k.endswith("training")]
     trained_launches.append(physical)
 

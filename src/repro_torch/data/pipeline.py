@@ -3,10 +3,11 @@
 
 ``SyntheticTokens`` draws the reference's batches with numpy, byte for byte
 for every (seed, step), so a restart that replays the stream position
-reproduces the run.  ``shard_batch`` moves a batch to one device (the
-card unless the caller asks for the CPU); sharding over a mesh waits for
-the port's sharding work.  ``Prefetcher`` produces batches on a background
-thread into a bounded queue.
+reproduces the run.  ``shard_batch`` moves a batch to a device (the card
+unless the caller asks for the CPU) and, given a mesh, places each array's
+batch dimension on the mesh's ("pod", "data") axes, as the reference does:
+every rank draws the same batch and keeps its own rows.  ``Prefetcher``
+produces batches on a background thread into a bounded queue.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..models.sharding import ACT_RULES, distribute, spec_for
 
 
 class SyntheticTokens:
@@ -45,11 +47,20 @@ class SyntheticTokens:
             yield self.next_batch()
 
 
-def shard_batch(batch: dict, device="cuda") -> dict:
-    """The batch's arrays as tensors on ``device`` (int32 kept)."""
+def shard_batch(batch: dict, device="cuda", mesh=None) -> dict:
+    """The batch's arrays as tensors on ``device`` (int32 kept); under a
+    ``mesh``, DTensors whose batch dimension is sharded by the activation
+    rules (replicated where it does not divide)."""
     device = resolve_device(device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+    out = {k: v if isinstance(v, torch.Tensor) else
+           torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+    out = {k: v.to(device) for k, v in out.items()}
+    if mesh is None:
+        return out
+    return {k: distribute(v, mesh, spec_for(
+                v.shape, ("batch",) + (None,) * (v.dim() - 1), mesh,
+                rules=ACT_RULES))
+            for k, v in out.items()}
 
 
 class Prefetcher:

@@ -12,7 +12,11 @@ query tiles into ``bwd_splits`` parts, one block each, and the wrapper sums
 their f32 partials in PyTorch.
 
 On a CPU tensor each wrapper computes its plain version (``ref.py``); on a
-CUDA tensor it launches its kernels or raises.
+CUDA tensor it launches its kernels or raises.  The launches are registered
+as custom ops (``repro_torch::flash_attn_fwd``, ``flash_attn_bwd``): a fake
+tensor goes through the op, whose fake implementation gives the outputs'
+shapes alone and whose flop formula (``kernels.flops``) counts the tiles the
+kernels compute (``kernels.run``).
 """
 from __future__ import annotations
 
@@ -20,8 +24,9 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from .. import count_launch
+from .. import count_launch, flops, run
 from ..build import load
 from .ref import attention_bwd_ref, attention_ref, lse_ref
 
@@ -138,10 +143,18 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             return o, lse_ref(q, k, causal=causal, window=window)
         return o
     _check(q, k, v, window)
+    o, lse = run(_fwd_op, _fwd_launch, q, k, v, causal, window or 0,
+                 return_lse)
+    return (o, lse) if return_lse else o
+
+
+def _fwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                window: int, return_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launches the forward kernel; lse is empty unless ``return_lse``."""
     B, S, H, hd = q.shape
     o = torch.empty_like(q)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
-        if return_lse else None
+    lse = torch.empty((B, H, S) if return_lse else (0,), dtype=torch.float32,
+                      device=q.device)
     fn = _function()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -152,7 +165,26 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         raise RuntimeError(f"{NAME} launch failed with CUDA error {err}")
     count_launch(NAME)
-    return (o, lse) if return_lse else o
+    return o, lse
+
+
+_fwd_op = torch.library.custom_op(
+    "repro_torch::flash_attn_fwd", mutates_args=())(_fwd_launch)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal, window, return_lse):
+    B, S, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, S) if return_lse else (0,),
+                                            dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attn_fwd, get_raw=True)
+def _(q, k, v, causal, window, return_lse, *args, **kwargs) -> int:
+    B, S, H, hd = q.shape
+    bn = 64 if q.dtype == torch.bfloat16 or hd <= 64 else 4096 // hd
+    return flops.flash_fwd(B, S, H, hd, causal, window or None,
+                           _block_q(hd, q.dtype), bn)
 
 
 def _bwd_functions():
@@ -203,8 +235,6 @@ def _check_bwd(q, k, v, o, lse, do, window):
         raise ValueError("q, k, v, o, lse and do must lie on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("o, lse and do must be contiguous")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the backward kernels read 16-byte aligned rows")
 
 
 def bwd_buffers(q, k, v, o, lse, do, *, window: Optional[int] = None,
@@ -215,6 +245,8 @@ def bwd_buffers(q, k, v, o, lse, do, *, window: Optional[int] = None,
     part, the f32 partials dk_part and dv_part, (splits, B, S, KH, hd) each,
     are allocated too."""
     _check_bwd(q, k, v, o, lse, do, window)
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, lse, do)):
+        raise ValueError("the backward kernels read 16-byte aligned rows")
     B, S, H, hd = q.shape
     KH = k.shape[2]
     if splits is None:
@@ -281,7 +313,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  window=window)
+    _check_bwd(q, k, v, o, lse, do, window)
+    return run(_bwd_op, _bwd_launch, q, k, v, o, lse, do, causal,
+               window or 0)
+
+
+def _bwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                lse: torch.Tensor, do: torch.Tensor, causal: bool, window: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    window = window or None
     bufs = bwd_buffers(q, k, v, o, lse, do, window=window)
     for name in BWD_KERNELS:
         launch_bwd(name, bufs, causal=causal, window=window)
     return bufs["dq"], bufs["dk"], bufs["dv"]
+
+
+_bwd_op = torch.library.custom_op(
+    "repro_torch::flash_attn_bwd", mutates_args=())(_bwd_launch)
+
+
+@_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal, window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attn_bwd, get_raw=True)
+def _(q, k, v, o, lse, do, causal, window, *args, **kwargs) -> int:
+    B, S, H, hd = q.shape
+    return flops.flash_bwd(B, S, H, hd, causal, window or None,
+                           _bwd_block(hd, q.dtype))

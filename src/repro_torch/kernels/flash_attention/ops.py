@@ -4,13 +4,15 @@ on a CUDA tensor and computes the plain version on a CPU tensor.  Where a
 gradient is wanted on the card, ``FlashAttention`` pairs the forward kernel
 with the backward kernels; on the CPU the plain version is differentiated
 by autograd, as the reference differentiates its jnp path off its
-accelerator."""
+accelerator.  Given DTensors (under a mesh), it runs on each rank's shards
+of the batch and the heads (``kernels.shards``)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from ..shards import Arg, is_dtensor, on_shards
 from .kernel import flash_attention_bwd, flash_attention_fwd
 from .ref import attention_chunked, attention_ref
 
@@ -51,6 +53,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
     query) is a masked matvec with no kernel, and long contiguous sequences
     take the query-blocked version.
     """
+    if is_dtensor(q):
+        H, KH = q.shape[2], k.shape[2]
+        kv = {"batch": 0, "heads": 2}
+        return on_shards(
+            lambda q, k, v, qp, kp: flash_attention(
+                q, k, v, causal=causal, window=window, q_positions=qp,
+                k_positions=kp, impl=impl),
+            q, kv, [Arg(q, kv), Arg(k, kv, (KH, H)), Arg(v, kv, (KH, H)),
+                    Arg(q_positions, {}), Arg(k_positions, {})], [kv])
     contiguous = q_positions is None and k_positions is None \
         and q.shape[1] == k.shape[1]
     if impl == "auto":

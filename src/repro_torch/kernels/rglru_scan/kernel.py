@@ -5,7 +5,10 @@ differentiates its jnp scan).
 
 On a CPU tensor each wrapper computes its kernel's plain version
 (``ref.rglru_scan_ref``, ``ref.rglru_scan_bwd_ref``); on a CUDA tensor it
-launches the kernel, counting the launch under its own name, or raises.
+launches the kernel, counting the launch under its own name, or raises.  The
+launches are registered as custom ops (``repro_torch::rglru_scan``,
+``rglru_scan_bwd``) that a fake tensor goes through (``kernels.run``): shapes
+alone, and a multiply and an add an element and step (``kernels.flops``).
 """
 from __future__ import annotations
 
@@ -13,8 +16,9 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from .. import count_launch
+from .. import count_launch, flops, run
 from ..build import load
 from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 
@@ -83,18 +87,45 @@ def rglru_scan_fwd(a: torch.Tensor, u: torch.Tensor,
             else rglru_scan_ref(a.float(), u.float(), h0)[0]
         return hs, h_final, h_state
     _check(a, u, h0)
+    hs, h_final, h_state = run(_scan_op, _scan_launch, a, u, h0,
+                               return_state)
+    if not return_state:
+        return hs, h_final
+    return hs, h_final, hs if hs.dtype == torch.float32 else h_state
+
+
+def _scan_launch(a: torch.Tensor, u: torch.Tensor, h0: Optional[torch.Tensor],
+                 return_state: bool) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Launches the scan; the third output holds every state in f32 for a
+    bf16 u with ``return_state`` (an f32 h_seq is its own), else is empty."""
     B, S, R = a.shape
     hs = torch.empty_like(u)
     h_final = torch.empty(B, R, dtype=torch.float32, device=a.device)
-    h_state = None
-    if return_state:
-        h_state = hs if hs.dtype == torch.float32 else torch.empty(
-            B, S, R, dtype=torch.float32, device=a.device)
+    separate = return_state and hs.dtype != torch.float32
+    h_state = torch.empty((B, S, R) if separate else (0,), dtype=torch.float32,
+                          device=a.device)
     _launch(NAME, (a.data_ptr(), u.data_ptr(), _ptr(h0), hs.data_ptr(),
-                   h_final.data_ptr(),
-                   None if h_state is None or h_state is hs else h_state.data_ptr(),
+                   h_final.data_ptr(), h_state.data_ptr() if separate else None,
                    B, S, R, _DTYPES[a.dtype]), a.device)
-    return (hs, h_final, h_state) if return_state else (hs, h_final)
+    return hs, h_final, h_state
+
+
+_scan_op = torch.library.custom_op(
+    "repro_torch::rglru_scan", mutates_args=())(_scan_launch)
+
+
+@_scan_op.register_fake
+def _(a, u, h0, return_state):
+    B, S, R = a.shape
+    separate = return_state and u.dtype != torch.float32
+    return (torch.empty_like(u), a.new_empty((B, R), dtype=torch.float32),
+            a.new_empty((B, S, R) if separate else (0,), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan)
+def _(a_shape, *args, **kwargs) -> int:
+    return flops.rglru_scan(*a_shape)
 
 
 def _ptr(t):
@@ -122,10 +153,16 @@ def rglru_scan_bwd(a: torch.Tensor, h_state: torch.Tensor,
         raise ValueError(f"dh_final {tuple(dh_final.shape)} {dh_final.dtype} "
                          "must be (B, R) float32")
     _check(a, dh_seq, h0, "dh_seq")
-    B, S, R = a.shape
     tensors = [t for t in (h_state, dh_final) if t is not None]
     if any(t.device != a.device or not t.is_contiguous() for t in tensors):
         raise ValueError("h_state and dh_final must be contiguous, on a's device")
+    return run(_bwd_op, _bwd_launch, a, h_state, h0, dh_seq, dh_final)
+
+
+def _bwd_launch(a: torch.Tensor, h_state: torch.Tensor, h0: Optional[torch.Tensor],
+                dh_seq: torch.Tensor, dh_final: Optional[torch.Tensor]
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, R = a.shape
     da, du = torch.empty_like(a), torch.empty_like(a)
     dh0 = torch.empty(B, R, dtype=torch.float32, device=a.device)
     _launch(BWD_NAME, (a.data_ptr(), h_state.data_ptr(), _ptr(h0),
@@ -133,3 +170,19 @@ def rglru_scan_bwd(a: torch.Tensor, h_state: torch.Tensor,
                        du.data_ptr(), dh0.data_ptr(), B, S, R, _DTYPES[a.dtype]),
             a.device)
     return da, du, dh0
+
+
+_bwd_op = torch.library.custom_op(
+    "repro_torch::rglru_scan_bwd", mutates_args=())(_bwd_launch)
+
+
+@_bwd_op.register_fake
+def _(a, h_state, h0, dh_seq, dh_final):
+    B, _, R = a.shape
+    return (torch.empty_like(a), torch.empty_like(a),
+            a.new_empty((B, R), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan_bwd)
+def _(a_shape, *args, **kwargs) -> int:
+    return flops.rglru_scan_bwd(*a_shape)

@@ -4,11 +4,13 @@ plain versions on a CPU tensor; the device is looked at there and nowhere
 else.  Where a gradient is wanted on the card, ``RGLRUScan`` pairs the scan
 kernel with its backward kernel; on the CPU the plain version is
 differentiated by autograd, as the reference differentiates its jnp scan off
-its accelerator."""
+its accelerator.  Given DTensors (under a mesh), it runs on each rank's shards
+of the batch and the channels (``kernels.shards``)."""
 from __future__ import annotations
 
 import torch
 
+from ..shards import Arg, is_dtensor, on_shards
 from .kernel import rglru_scan_bwd, rglru_scan_fwd
 from .ref import rglru_scan_assoc, rglru_scan_ref
 
@@ -45,6 +47,11 @@ def rglru_scan(a, u, h0=None, *, impl: str = "auto"):
     is enabled and an input on the card requires it; ``"sequential"``:
     ``rglru_scan_ref``; ``"reference"``: ``rglru_scan_assoc``, the model's
     plain path."""
+    if is_dtensor(a):
+        seq, state = {"batch": 0, "heads": 2}, {"batch": 0, "heads": 1}
+        return on_shards(lambda a, u, h0: rglru_scan(a, u, h0, impl=impl), a,
+                         seq, [Arg(a, seq), Arg(u, seq), Arg(h0, state)],
+                         [seq, state])
     if impl == "auto":
         args = (a.contiguous(), u.contiguous(),
                 None if h0 is None else h0.contiguous())

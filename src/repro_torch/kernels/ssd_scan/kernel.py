@@ -16,16 +16,21 @@
 
 On a CPU tensor each wrapper computes its kernel's plain version (``ref``);
 on a CUDA tensor it checks its inputs, launches the kernel and counts the
-launch in ``LAUNCHES`` under its own name, or raises.
+launch in ``LAUNCHES`` under its own name, or raises.  The launches are
+registered as custom ops (``repro_torch::<name>``) that a fake tensor goes
+through (``kernels.run``): shapes alone, and the products each kernel
+computes (``kernels.flops``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from .. import count_launch
+from .. import count_launch, flops, run
 from ..build import load
 from .ref import (chunk_bwd_ref, chunk_cumsum, chunk_dstate_ref, chunk_scan_ref,
                   chunk_state_ref, pass_states, ssd_chunk_ref, state_pass_bwd_ref)
@@ -111,16 +116,21 @@ def _check(x, dt, cum, B, C, chunk, dtypes=tuple(_DTYPES)):
         raise TypeError(f"dt and cum must be float32, got {dt.dtype}, {cum.dtype}")
 
 
-def _check_device(*tensors, aligned: bool = True):
-    """One CUDA device, contiguous and, for the bf16 kernels, which copy rows
-    in 16-byte pieces, 16-byte aligned; None entries are skipped."""
+def _check_device(*tensors):
+    """One CUDA device, contiguous; None entries are skipped."""
     tensors = [t for t in tensors if t is not None]
     if len({t.device for t in tensors}) != 1 or tensors[0].device.type != "cuda":
         raise ValueError("the inputs must lie on one CUDA device: "
                          f"{[str(t.device) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the inputs must be contiguous")
-    if aligned and any(t.data_ptr() % 16 for t in tensors):
+
+
+def _check_aligned(*tensors):
+    """16-byte aligned, for the bf16 kernels, which copy rows in 16-byte
+    pieces (checked in the op, on the tensors the kernel reads); None
+    entries are skipped."""
+    if any(t.data_ptr() % 16 for t in tensors if t is not None):
         raise ValueError("the inputs must start on a 16-byte boundary")
 
 
@@ -141,12 +151,20 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, dt, cum, B, C, chunk=chunk)
     _check(x, dt, cum, B, C, chunk)
-    _check_device(x, dt, cum, B, C, aligned=False)
+    _check_device(x, dt, cum, B, C)
     Bt, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     if S // chunk > _MAX_GRID_Y or Bt * H >= 2 ** 31:
         raise ValueError(f"S/chunk={S // chunk}, Bt*H={Bt * H} exceed the "
                          "kernel's grid")
+    return run(_chunk_op, _chunk_launch, x, dt, cum, B, C, chunk)
+
+
+def _chunk_launch(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, chunk: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
     nc = S // chunk
     y = torch.empty(Bt, S, H, P, dtype=torch.float32, device=x.device)
     chunk_in = torch.empty(Bt, nc, H, P, N, dtype=torch.float32, device=x.device)
@@ -155,6 +173,23 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
             C.data_ptr(), y.data_ptr(), chunk_in.data_ptr(),
             Bt, S, H, G, P, N, chunk, _DTYPES[x.dtype], device=x.device)
     return y, chunk_in
+
+
+_chunk_op = torch.library.custom_op(
+    "repro_torch::ssd_chunk", mutates_args=())(_chunk_launch)
+
+
+@_chunk_op.register_fake
+def _(x, dt, cum, B, C, chunk):
+    Bt, S, H, P = x.shape
+    return (x.new_empty((Bt, S, H, P), dtype=torch.float32),
+            x.new_empty((Bt, S // chunk, H, P, B.shape[3]), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk)
+def _(x, dt, cum, B, C, chunk, *args, **kwargs) -> int:
+    Bt, S, H, P = x
+    return flops.ssd_chunk(Bt, S, H, P, B[2], B[3], chunk)
 
 
 def _check_grid(x, B, chunk: int, head_block: int) -> None:
@@ -184,6 +219,14 @@ def ssd_chunk_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"{tuple(A.shape)} {A.dtype}")
     _check_grid(x, B, chunk, STATE_HEAD_BLOCK)
     _check_device(x, dt, A, B)
+    return run(_chunk_state_op, _chunk_state_launch, x, dt, A, B,
+               chunk)
+
+
+def _chunk_state_launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        B: torch.Tensor, chunk: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    _check_aligned(x, dt, A, B)
     Bt, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     chunk_in = torch.empty(Bt, S // chunk, H, P, N, dtype=torch.float32,
@@ -194,6 +237,23 @@ def ssd_chunk_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             chunk_in.data_ptr(), cum.data_ptr(), Bt, S, H, G, P, N, chunk,
             STATE_HEAD_BLOCK, device=x.device)
     return chunk_in, cum
+
+
+_chunk_state_op = torch.library.custom_op(
+    "repro_torch::ssd_chunk_state", mutates_args=())(_chunk_state_launch)
+
+
+@_chunk_state_op.register_fake
+def _(x, dt, A, B, chunk):
+    Bt, S, H, P = x.shape
+    return (x.new_empty((Bt, S // chunk, H, P, B.shape[3]), dtype=torch.float32),
+            torch.empty_like(dt))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk_state)
+def _(x, dt, A, B, chunk, *args, **kwargs) -> int:
+    Bt, S, H, P = x
+    return flops.ssd_chunk_state(Bt, S, H, P, B[3], chunk)
 
 
 def ssd_state_pass(chunk_in: torch.Tensor, cum: torch.Tensor,
@@ -222,6 +282,15 @@ def ssd_state_pass(chunk_in: torch.Tensor, cum: torch.Tensor,
         raise ValueError(f"Bt*H*P*N/4={Bt * H * P * N // 4} exceeds the "
                          "kernel's grid")
     _check_device(chunk_in, cum, h0)
+    return run(_state_pass_op, _state_pass_launch, chunk_in, cum, h0,
+               chunk)
+
+
+def _state_pass_launch(chunk_in: torch.Tensor, cum: torch.Tensor,
+                       h0: Optional[torch.Tensor], chunk: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    Bt, nc, H, P, N = chunk_in.shape
+    _check_aligned(chunk_in, cum, h0)
     h_ins = torch.empty_like(chunk_in)
     h_final = torch.empty(Bt, H, P, N, dtype=torch.float32,
                           device=chunk_in.device)
@@ -231,6 +300,22 @@ def ssd_state_pass(chunk_in: torch.Tensor, cum: torch.Tensor,
             h_final.data_ptr(), Bt, nc * chunk, H, P, N, chunk,
             device=chunk_in.device)
     return h_ins, h_final
+
+
+_state_pass_op = torch.library.custom_op(
+    "repro_torch::ssd_state_pass", mutates_args=())(_state_pass_launch)
+
+
+@_state_pass_op.register_fake
+def _(chunk_in, cum, h0, chunk):
+    Bt, _, H, P, N = chunk_in.shape
+    return (torch.empty_like(chunk_in),
+            chunk_in.new_empty((Bt, H, P, N), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_state_pass)
+def _(chunk_in, *args, **kwargs) -> int:
+    return flops.ssd_state_pass(*chunk_in)
 
 
 def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
@@ -255,12 +340,37 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                         f"{h_ins.dtype}")
     _check_grid(x, B, chunk, SCAN_HEAD_BLOCK)
     _check_device(x, dt, cum, B, C, D, h_ins)
+    return run(_chunk_scan_op, _chunk_scan_launch, x, dt, cum, B, C, D,
+               h_ins, chunk)
+
+
+def _chunk_scan_launch(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                       h_ins: torch.Tensor, chunk: int) -> torch.Tensor:
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    _check_aligned(x, dt, cum, B, C, D, h_ins)
     y = torch.empty_like(x)
     _launch("ssd_chunk_scan", _function(BF16_LIBRARY, "ssd_chunk_scan", 8, 8),
             x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(), h_ins.data_ptr(), y.data_ptr(),
             Bt, S, H, G, P, N, chunk, SCAN_HEAD_BLOCK, device=x.device)
     return y
+
+
+_chunk_scan_op = torch.library.custom_op(
+    "repro_torch::ssd_chunk_scan", mutates_args=())(_chunk_scan_launch)
+
+
+@_chunk_scan_op.register_fake
+def _(x, dt, cum, B, C, D, h_ins, chunk):
+    return torch.empty_like(x)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk_scan)
+def _(x, dt, cum, B, C, D, h_ins, chunk, *args, **kwargs) -> int:
+    Bt, S, H, P = x
+    return flops.ssd_chunk_scan(Bt, S, H, P, B[2], B[3], chunk, SCAN_HEAD_BLOCK)
 
 
 def ssd_bwd_dstate(dy: torch.Tensor, cum: torch.Tensor, C: torch.Tensor, *,
@@ -282,7 +392,17 @@ def ssd_bwd_dstate(dy: torch.Tensor, cum: torch.Tensor, C: torch.Tensor, *,
         _check_grid(dy, C, chunk, STATE_HEAD_BLOCK)
     elif Bt * (S // chunk) * H > _MAX_GRID_X:
         raise ValueError(f"{Bt * (S // chunk) * H} blocks exceed the kernel's grid")
-    _check_device(dy, cum, C, aligned=bf16)
+    _check_device(dy, cum, C)
+    return run(_bwd_dstate_op, _bwd_dstate_launch, dy, cum, C, chunk)
+
+
+def _bwd_dstate_launch(dy: torch.Tensor, cum: torch.Tensor, C: torch.Tensor,
+                       chunk: int) -> torch.Tensor:
+    Bt, S, H, P = dy.shape
+    G, N = C.shape[2], C.shape[3]
+    bf16 = dy.dtype == torch.bfloat16
+    if bf16:
+        _check_aligned(dy, cum, C)
     dS = torch.empty(Bt, S // chunk, H, P, N, dtype=torch.float32,
                      device=dy.device)
     if bf16:
@@ -295,6 +415,22 @@ def ssd_bwd_dstate(dy: torch.Tensor, cum: torch.Tensor, C: torch.Tensor, *,
                 dy.data_ptr(), cum.data_ptr(), C.data_ptr(), dS.data_ptr(), Bt,
                 S, H, G, P, N, chunk, _DTYPES[dy.dtype], device=dy.device)
     return dS
+
+
+_bwd_dstate_op = torch.library.custom_op(
+    "repro_torch::ssd_bwd_dstate", mutates_args=())(_bwd_dstate_launch)
+
+
+@_bwd_dstate_op.register_fake
+def _(dy, cum, C, chunk):
+    Bt, S, H, P = dy.shape
+    return dy.new_empty((Bt, S // chunk, H, P, C.shape[3]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_bwd_dstate)
+def _(dy, cum, C, chunk, *args, **kwargs) -> int:
+    Bt, S, H, P = dy
+    return flops.ssd_bwd_dstate(Bt, S, H, P, C[3])
 
 
 def ssd_bwd_state_pass(dS: torch.Tensor, cum: torch.Tensor, h_ins: torch.Tensor,
@@ -326,6 +462,17 @@ def ssd_bwd_state_pass(dS: torch.Tensor, cum: torch.Tensor, h_ins: torch.Tensor,
     if Bt * H > _MAX_GRID_X or parts > _MAX_GRID_Y:
         raise ValueError(f"Bt*H={Bt * H}, {parts} parts exceed the kernel's grid")
     _check_device(dS, cum, h_ins, dh_final)
+    return run(_bwd_state_pass_op, _bwd_state_pass_launch, dS, cum, h_ins,
+               dh_final, chunk)
+
+
+def _bwd_state_pass_launch(dS: torch.Tensor, cum: torch.Tensor,
+                           h_ins: torch.Tensor, dh_final: Optional[torch.Tensor],
+                           chunk: int
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    Bt, nc, H, P, N = dS.shape
+    parts = -(-(P * N // 4) // _BWD_PASS_THREADS)
+    _check_aligned(dS, cum, h_ins, dh_final)
     dchunk_in = torch.empty_like(dS)
     dh0 = torch.empty(Bt, H, P, N, dtype=torch.float32, device=dS.device)
     end_part = torch.empty(Bt, nc, H, parts, dtype=torch.float32, device=dS.device)
@@ -336,6 +483,22 @@ def ssd_bwd_state_pass(dS: torch.Tensor, cum: torch.Tensor, h_ins: torch.Tensor,
             dchunk_in.data_ptr(), dh0.data_ptr(), end_part.data_ptr(), Bt,
             nc * chunk, H, P, N, chunk, device=dS.device)
     return dchunk_in, dh0, end_part.sum(-1)
+
+
+_bwd_state_pass_op = torch.library.custom_op(
+    "repro_torch::ssd_bwd_state_pass", mutates_args=())(_bwd_state_pass_launch)
+
+
+@_bwd_state_pass_op.register_fake
+def _(dS, cum, h_ins, dh_final, chunk):
+    Bt, nc, H, P, N = dS.shape
+    return (torch.empty_like(dS), dS.new_empty((Bt, H, P, N)),
+            dS.new_empty((Bt, nc, H)))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_bwd_state_pass)
+def _(dS, *args, **kwargs) -> int:
+    return flops.ssd_bwd_state_pass(*dS)
 
 
 def ssd_bwd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -394,8 +557,24 @@ def _bwd_chunk(tensor_cores: bool, x, dt, A, cum, B, C, D, dy, h_ins,
         raise TypeError("A, D, h_ins, dchunk_in and end_term must be float32")
     hb = BWD_TC_HEAD_BLOCK if tensor_cores else BWD_HEAD_BLOCK
     _check_grid(x, B, chunk, hb)
-    _check_device(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in, end_term,
-                  aligned=tensor_cores)
+    _check_device(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in, end_term)
+    return run(_bwd_chunk_op, _bwd_chunk_launch, tensor_cores, x, dt, A, cum,
+               B, C, D, dy, h_ins, dchunk_in, end_term, chunk)
+
+
+def _bwd_chunk_launch(tensor_cores: bool, x: torch.Tensor, dt: torch.Tensor,
+                      A: torch.Tensor, cum: torch.Tensor, B: torch.Tensor,
+                      C: torch.Tensor, D: torch.Tensor, dy: torch.Tensor,
+                      h_ins: torch.Tensor, dchunk_in: torch.Tensor,
+                      end_term: torch.Tensor, chunk: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor, torch.Tensor, torch.Tensor]:
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc = S // chunk
+    hb = BWD_TC_HEAD_BLOCK if tensor_cores else BWD_HEAD_BLOCK
+    if tensor_cores:
+        _check_aligned(x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in, end_term)
     nhb = -(-(H // G) // hb)
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
@@ -420,6 +599,25 @@ def _bwd_chunk(tensor_cores: bool, x, dt, A, cum, B, C, D, dy, h_ins,
                 device=x.device)
     return (dx, ddt, dA_part.sum((0, 1)), dB_part.sum(0), dC_part.sum(0),
             dD_part.sum((0, 1)))
+
+
+_bwd_chunk_op = torch.library.custom_op(
+    "repro_torch::ssd_bwd_chunk", mutates_args=())(_bwd_chunk_launch)
+
+
+@_bwd_chunk_op.register_fake
+def _(tensor_cores, x, dt, A, cum, B, C, D, dy, h_ins, dchunk_in, end_term,
+      chunk):
+    f32 = dict(dtype=torch.float32)
+    return (torch.empty_like(x), torch.empty_like(dt), A.new_empty(A.shape, **f32),
+            B.new_empty(B.shape, **f32), C.new_empty(C.shape, **f32),
+            D.new_empty(D.shape, **f32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_bwd_chunk)
+def _(tensor_cores, x, dt, A, cum, B, *args, **kwargs) -> int:
+    Bt, S, H, P = x
+    return flops.ssd_bwd_chunk(Bt, S, H, P, B[2], B[3], args[-1])
 
 
 def bwd_attributes(kernel: str, P: int, N: int, dtype: torch.dtype) -> dict:

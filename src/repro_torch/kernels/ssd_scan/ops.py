@@ -14,17 +14,20 @@ the backward kernels (``csrc/ssd_bwd.cu`` for f32; for bf16 the tensor-core
 ``ssd_bwd_dstate`` of ``csrc/ssd_bf16.cu`` and ``ssd_bwd_chunk`` of
 ``csrc/ssd_bwd_tc.cu``); on the CPU the plain versions are differentiated by
 autograd, as the reference differentiates its jnp path off its
-accelerator.
+accelerator.  Given DTensors (under a mesh), ``ssd`` runs on each rank's
+shards of the batch and the heads (``kernels.shards``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..shards import Arg, is_dtensor, on_shards
 from .kernel import (ssd_bwd_chunk, ssd_bwd_dstate, ssd_bwd_state_pass,
                      ssd_chunk, ssd_chunk_scan, ssd_chunk_state, ssd_state_pass)
+from . import ref
 from .ref import (chunk_cumsum, combine, pass_states, ssd_chunked_ref,
-                  ssd_decode_step, ssd_ref)
+                  ssd_ref)
 
 __all__ = ["SSDScan", "ssd", "ssd_decode_step"]
 
@@ -79,6 +82,16 @@ def ssd(x, dt, A, B, C, D, *, chunk: int = 256, h0=None, impl: str = "auto"):
     ``ssd_chunked_ref``; ``"sequential"``: ``ssd_ref``."""
     if impl not in ("auto", "reference", "sequential"):
         raise ValueError(f"unknown impl {impl!r}")
+    if is_dtensor(x):
+        H, G = x.shape[2], B.shape[2]
+        seq, head, state = ({"batch": 0, "heads": 2}, {"heads": 0},
+                            {"batch": 0, "heads": 1})
+        return on_shards(
+            lambda x, dt, A, B, C, D, h0: ssd(x, dt, A, B, C, D, chunk=chunk,
+                                              h0=h0, impl=impl),
+            x, seq, [Arg(x, seq), Arg(dt, seq), Arg(A, head),
+                     Arg(B, seq, (G, H)), Arg(C, seq, (G, H)), Arg(D, head),
+                     Arg(h0, state)], [seq, state])
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x is {x.dtype}; ssd takes float32 or bfloat16")
     if impl == "sequential":
@@ -100,6 +113,20 @@ def ssd(x, dt, A, B, C, D, *, chunk: int = 256, h0=None, impl: str = "auto"):
         return SSDScan.apply(x, dt, A, B, C, D, h0, chunk)
     path = _fused if x.dtype == torch.bfloat16 else _intra_then_pass
     return path(x, dt, A, B, C, D, chunk=chunk, h0=h0)[:2]
+
+
+def ssd_decode_step(h, x, dt, A, B, C, D):
+    """Single-token recurrent update (``ref.ssd_decode_step``, plain PyTorch
+    as in the reference); given DTensors, on each rank's shards of the
+    batch and the heads."""
+    if is_dtensor(x):
+        H, G = x.shape[1], B.shape[1]
+        bh, head = {"batch": 0, "heads": 1}, {"heads": 0}
+        return on_shards(ref.ssd_decode_step, x, bh,
+                         [Arg(h, bh), Arg(x, bh), Arg(dt, bh), Arg(A, head),
+                          Arg(B, bh, (G, H)), Arg(C, bh, (G, H)),
+                          Arg(D, head)], [bh, bh])
+    return ref.ssd_decode_step(h, x, dt, A, B, C, D)
 
 
 def _fused(x, dt, A, B, C, D, *, chunk: int, h0=None):

@@ -4,6 +4,7 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m --no-reduced --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m --no-reduced --batch 4 --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --no-reduced --batch 4 --seq 2048 --mesh 1x1
 
 Trains an LM (dense, mixture of experts, Mamba2, RG-LRU hybrid or
 encoder-decoder, the last fed zero encoder frames as in the reference) on
@@ -12,8 +13,14 @@ asynchronous checkpoints and restart-resume (a resumed run replays the data
 stream from the saved step).  Runs on ``cuda`` unless ``--device cpu`` is
 given; without a card it raises rather than fall back.  ``--reduced``
 (off by default, as the reference's ``store_true``) trains the small
-structure-preserving config.  Mesh sharding waits for the port's sharding
-work, so there is no ``--mesh``.
+structure-preserving config.  ``--mesh DxM`` trains on a (data, model)
+mesh of D*M ranks, one device each: the parameters and moments placed by
+``lm.param_pspecs`` as DTensors, the batch on ``data``, the step under
+``sharding.mesh_context``.  It takes the process group the caller started
+(one process per device); with none, a 1 x 1 mesh runs on a group of this
+process alone.  A mesh that needs more ranks or devices than there are
+raises.  On one card the only real mesh is 1 x 1, which computes what the
+run without a mesh computes.
 """
 from __future__ import annotations
 
@@ -28,7 +35,10 @@ from .. import resolve_device
 from ..configs import ARCHS
 from ..data.pipeline import SyntheticTokens, shard_batch
 from ..kernels import LAUNCHES
+from ..kernels.shards import is_dtensor
 from ..models import lm
+from ..models.params import flatten, unflatten
+from ..models.sharding import distribute, mesh_context
 from ..models.steps import enc_embeds, init_train_state, make_train_step
 from ..train.checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
 from ..train.optimizer import OptConfig
@@ -37,6 +47,48 @@ from ..train.optimizer import OptConfig
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _start_mesh(spec: str, device: torch.device):
+    """(mesh, whether this call started the process group) for ``--mesh
+    DxM``."""
+    import torch.distributed as dist
+    from .mesh import make_mesh
+    d, m = (int(x) for x in spec.split("x"))
+    n = d * m
+    started = False
+    if not dist.is_initialized():
+        if n != 1:
+            raise ValueError(
+                f"--mesh {spec} needs {n} processes, one device each; start "
+                "them with their process group (torchrun), or use --mesh 1x1")
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1)
+        started = True
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        raise ValueError(f"--mesh {spec} needs {n} devices; this machine has "
+                         f"{torch.cuda.device_count()}")
+    try:
+        return make_mesh((d, m), ("data", "model"), device.type), started
+    except Exception:
+        if started:
+            dist.destroy_process_group()
+        raise
+
+
+def _placed(state, cfg, mesh):
+    """The train state as DTensors: parameters and both moments by
+    ``lm.param_pspecs``; the step count stays a plain tensor."""
+    specs = flatten(lm.param_pspecs(cfg, mesh))
+
+    def place(tree):
+        return unflatten({k: distribute(t, mesh, specs[k]).requires_grad_(
+            t.requires_grad) for k, t in flatten(tree).items()})
+
+    return {"params": place(state["params"]),
+            "opt": {"m": place(state["opt"]["m"]),
+                    "v": place(state["opt"]["v"]),
+                    "step": state["opt"]["step"]}}
 
 
 def main(argv=None):
@@ -57,6 +109,8 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: a (data, model) mesh, one device a rank")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -70,6 +124,18 @@ def main(argv=None):
         state, start_step, _ = restore_checkpoint(args.checkpoint_dir,
                                                   device=device)
         print(f"[train] resumed from step {start_step}")
+    mesh, started = _start_mesh(args.mesh, device) if args.mesh else (None, False)
+    try:
+        return _train(args, cfg, device, state, start_step, mesh)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, device, state, start_step: int, mesh):
+    if mesh is not None:
+        state = _placed(state, cfg, mesh)
 
     oc = OptConfig(lr=args.lr, total_steps=max(args.steps, 1000))
     step_fn = make_train_step(cfg, oc)
@@ -79,7 +145,8 @@ def main(argv=None):
 
     n_params = lm.num_params(cfg)
     print(f"[train] arch={cfg.name} params={n_params/1e6:.1f}M "
-          f"batch={args.batch} seq={args.seq} steps={args.steps}")
+          f"batch={args.batch} seq={args.seq} steps={args.steps}"
+          + (f" mesh={dict(mesh.shape)}" if mesh is not None else ""))
     tok_per_step = args.batch * args.seq
     losses, step_ms, launches = [], [], []
     if device.type == "cuda":
@@ -89,11 +156,14 @@ def main(argv=None):
     for step in range(start_step, args.steps):
         t = time.perf_counter()
         before = collections.Counter(LAUNCHES)
-        batch = shard_batch(src.next_batch(), device)
+        batch = src.next_batch()
         if cfg.enc_dec:
             batch["enc_embeds"] = enc_embeds(cfg, args.batch, device)
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])  # waits for the step
+        batch = shard_batch(batch, device, mesh)
+        with mesh_context(mesh):
+            state, metrics = step_fn(state, batch)
+        loss = metrics["loss"]
+        loss = float(loss.full_tensor() if is_dtensor(loss) else loss)
         _sync(device)
         step_ms.append(1e3 * (time.perf_counter() - t))
         launches.append(dict(LAUNCHES - before))

@@ -4,9 +4,11 @@ cross-attention, gated MLP, and the depthwise causal conv of the recurrent
 blocks.
 
 Layers are plain functions on tensors; ``p`` is a dict of parameter tensors.
-Without a device mesh there is nothing to constrain, so ``constrain`` has no
-counterpart, and ``attention_ctx_parallel`` (taken only under a mesh) waits
-for the sharding work.
+Under a mesh (``sharding.mesh_context``) the tensors are DTensors, and
+``constrain`` places the activations where the reference constrains them;
+without one it returns its input.  Self-attention whose heads do not shard
+over the mesh's ``model`` axis takes ``attention_ctx_parallel`` at 1024
+tokens or more, as in the reference.
 """
 from __future__ import annotations
 
@@ -17,7 +19,10 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.shards import Arg, is_dtensor, on_shards
 from .params import ParamDef
+from .sharding import (constrain, current_mesh, current_profile, einsum,
+                       matmul)
 
 
 # ------------------------------------------------------------------- norms
@@ -28,7 +33,7 @@ def rmsnorm(x, scale, eps=1e-6):
 
 
 def norm_defs(d_model: int) -> ParamDef:
-    return ParamDef((d_model,), init="ones")
+    return ParamDef((d_model,), (None,), init="ones")
 
 
 # -------------------------------------------------------------------- rope
@@ -59,26 +64,26 @@ def sinusoidal_embedding(positions, d_model: int):
 def attn_defs(cfg: ArchConfig, cross: bool = False):
     D, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     d = {
-        "wq": ParamDef((D, H, hd), fan_in=D),
-        "wk": ParamDef((D, KH, hd), fan_in=D),
-        "wv": ParamDef((D, KH, hd), fan_in=D),
-        "wo": ParamDef((H, hd, D), fan_in=H * hd),
+        "wq": ParamDef((D, H, hd), ("embed", "heads", "head_dim"), fan_in=D),
+        "wk": ParamDef((D, KH, hd), ("embed", "kv_heads", "head_dim"), fan_in=D),
+        "wv": ParamDef((D, KH, hd), ("embed", "kv_heads", "head_dim"), fan_in=D),
+        "wo": ParamDef((H, hd, D), ("heads", "head_dim", "embed"), fan_in=H * hd),
     }
     if cfg.use_bias:
-        d["bq"] = ParamDef((H, hd), init="zeros")
-        d["bv"] = ParamDef((KH, hd), init="zeros")
-        d["bo"] = ParamDef((D,), init="zeros")
+        d["bq"] = ParamDef((H, hd), ("heads", "head_dim"), init="zeros")
+        d["bv"] = ParamDef((KH, hd), ("kv_heads", "head_dim"), init="zeros")
+        d["bo"] = ParamDef((D,), (None,), init="zeros")
     if cfg.qk_norm and not cross:
-        d["qn"] = ParamDef((hd,), init="ones")
-        d["kn"] = ParamDef((hd,), init="ones")
+        d["qn"] = ParamDef((hd,), (None,), init="ones")
+        d["kn"] = ParamDef((hd,), (None,), init="ones")
     return d
 
 
 def _proj_qkv(p, xq, xkv, cfg: ArchConfig, positions_q, positions_k,
               use_rope: bool):
-    q = torch.einsum("bsd,dhk->bshk", xq, p["wq"].to(xq.dtype))
-    k = torch.einsum("bsd,dhk->bshk", xkv, p["wk"].to(xkv.dtype))
-    v = torch.einsum("bsd,dhk->bshk", xkv, p["wv"].to(xkv.dtype))
+    q = einsum("bsd,dhk->bshk", xq, p["wq"].to(xq.dtype))
+    k = einsum("bsd,dhk->bshk", xkv, p["wk"].to(xkv.dtype))
+    v = einsum("bsd,dhk->bshk", xkv, p["wv"].to(xkv.dtype))
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)
         v = v + p["bv"].to(v.dtype)
@@ -92,20 +97,61 @@ def _proj_qkv(p, xq, xkv, cfg: ArchConfig, positions_q, positions_k,
 
 
 def _out_proj(p, o, dtype):
-    y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(dtype))
+    y = einsum("bshk,hkd->bsd", o, p["wo"].to(dtype))
     if "bo" in p:
         y = y + p["bo"].to(dtype)
     return y
+
+
+def _heads_shardable(cfg: ArchConfig) -> bool:
+    mesh = current_mesh()
+    if mesh is None or "model" not in mesh.shape:
+        return True
+    if current_profile() == "fsdp":
+        return True  # no TP axis in use
+    return cfg.n_heads % mesh.shape["model"] == 0
+
+
+def attention_ctx_parallel(q, k, v, *, causal: bool, window: Optional[int]):
+    """Context-parallel attention: the query SEQUENCE dim is sharded on the
+    `model` axis (K/V replicated), so score blocks shard 16-way even when the
+    head count doesn't divide the mesh (e.g. smollm's 9 heads).  One big
+    masked einsum — per-device score memory is S²/model_shards.  Plain
+    PyTorch in f32, as the reference's jnp."""
+    B, Sq, H, hd = q.shape
+    q = constrain(q, "batch", "qseq", None, None)
+    qf = q.float().reshape(B, Sq, k.shape[2], H // k.shape[2], hd)
+    s = einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    s = s / float(hd) ** 0.5
+    s = constrain(s, "batch", None, None, "qseq", None)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    s = torch.where(mask[None, None, None], s, -1e30)
+    p_ = torch.softmax(s, dim=-1)
+    o = einsum("bhgqk,bkhd->bqhgd", p_, v.float())
+    o = o.reshape(B, Sq, H, hd).to(q.dtype)
+    return constrain(o, "batch", "qseq", None, None)
 
 
 def attention_full_seq(p, x, cfg: ArchConfig, *, causal: bool,
                        window: Optional[int], impl: str = "auto"):
     """Train / prefill path: self-attention over the full sequence.
     Returns (y, (k, v)); train mode drops (k, v)."""
-    pos = torch.arange(x.shape[1], device=x.device)
+    S = x.shape[1]
+    pos = torch.arange(S, device=x.device)
     q, k, v = _proj_qkv(p, x, x, cfg, pos, pos, use_rope=True)
-    o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=causal, window=window, impl=impl)
+    if not _heads_shardable(cfg) and S >= 1024:
+        o = attention_ctx_parallel(q, k, v, causal=causal, window=window)
+    else:
+        q = constrain(q, "batch", None, "heads", None)
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=causal, window=window, impl=impl)
+        o = constrain(o, "batch", None, "heads", None)
     return _out_proj(p, o, x.dtype), (k, v)
 
 
@@ -117,9 +163,11 @@ def attn_cache_defs(cfg: ArchConfig, batch: int, ctx: int):
     KH, hd = cfg.n_kv_heads, cfg.hd
     cap = _cache_capacity(cfg, ctx)
     return {
-        "k": ParamDef((batch, cap, KH, hd), init="zeros"),
-        "v": ParamDef((batch, cap, KH, hd), init="zeros"),
-        "pos": ParamDef((cap,), init="zeros", dtype="int32"),
+        "k": ParamDef((batch, cap, KH, hd), ("batch", None, "kv_heads", None),
+                      init="zeros"),
+        "v": ParamDef((batch, cap, KH, hd), ("batch", None, "kv_heads", None),
+                      init="zeros"),
+        "pos": ParamDef((cap,), (None,), init="zeros", dtype="int32"),
     }
 
 
@@ -170,13 +218,13 @@ def cross_attention(p, x, cfg: ArchConfig, enc_kv=None, enc_out=None):
     the plain attention, as in the reference; no RoPE, and of the biases
     only bq and bv.  Returns (y, (k, v))."""
     if enc_kv is None:
-        k = torch.einsum("btd,dhk->bthk", enc_out, p["wk"].to(enc_out.dtype))
-        v = torch.einsum("btd,dhk->bthk", enc_out, p["wv"].to(enc_out.dtype))
+        k = einsum("btd,dhk->bthk", enc_out, p["wk"].to(enc_out.dtype))
+        v = einsum("btd,dhk->bthk", enc_out, p["wv"].to(enc_out.dtype))
         if "bv" in p:
             v = v + p["bv"].to(v.dtype)
         enc_kv = (k, v)
     k, v = enc_kv
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q = einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)
     o = flash_attention(q, k, v, causal=False, impl="reference")
@@ -187,7 +235,12 @@ def cross_attention(p, x, cfg: ArchConfig, enc_kv=None, enc_out=None):
 def causal_conv(u, w, b):
     """Depthwise causal conv over (B, S, C); w: (W, C); no activation.  The
     reference's W-step shift-and-add, not ``F.conv1d`` (cuDNN, TF32 by
-    default)."""
+    default); under a mesh, on each rank's shards of the batch and the
+    channels."""
+    if is_dtensor(u):
+        seq = {"batch": 0, "heads": 2}
+        return on_shards(causal_conv, u, seq, [
+            Arg(u, seq), Arg(w, {"heads": 1}), Arg(b, {"heads": 0})], [seq])
     W, S = w.shape[0], u.shape[1]
     pad = F.pad(u, (0, 0, W - 1, 0))
     y = torch.zeros_like(u)
@@ -201,14 +254,14 @@ def mlp_defs(cfg: ArchConfig, d_ff: Optional[int] = None):
     D = cfg.d_model
     F_ = d_ff or cfg.d_ff
     d = {
-        "w_in": ParamDef((D, F_), fan_in=D),
-        "w_out": ParamDef((F_, D), fan_in=F_),
+        "w_in": ParamDef((D, F_), ("embed", "ffn"), fan_in=D),
+        "w_out": ParamDef((F_, D), ("ffn", "embed"), fan_in=F_),
     }
     if cfg.gated_mlp:
-        d["w_gate"] = ParamDef((D, F_), fan_in=D)
+        d["w_gate"] = ParamDef((D, F_), ("embed", "ffn"), fan_in=D)
     if cfg.use_bias:
-        d["b_in"] = ParamDef((F_,), init="zeros")
-        d["b_out"] = ParamDef((D,), init="zeros")
+        d["b_in"] = ParamDef((F_,), ("ffn",), init="zeros")
+        d["b_out"] = ParamDef((D,), (None,), init="zeros")
     return d
 
 
@@ -218,14 +271,15 @@ def _act(x, kind: str):
 
 
 def mlp_apply(p, x, cfg: ArchConfig):
-    h = x @ p["w_in"].to(x.dtype)
+    h = matmul(x, p["w_in"].to(x.dtype))
     if "b_in" in p:
         h = h + p["b_in"].to(x.dtype)
     if "w_gate" in p:
-        h = _act(h, cfg.act) * (x @ p["w_gate"].to(x.dtype))
+        h = _act(h, cfg.act) * matmul(x, p["w_gate"].to(x.dtype))
     else:
         h = _act(h, cfg.act)
-    y = h @ p["w_out"].to(x.dtype)
+    h = constrain(h, "batch", None, "ffn")
+    y = matmul(h, p["w_out"].to(x.dtype))
     if "b_out" in p:
         y = y + p["b_out"].to(x.dtype)
     return y

@@ -22,18 +22,19 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..kernels.shards import is_dtensor
 from .layers import (attn_cache_defs, attn_defs, attention_decode,
                      attention_full_seq, attention_prefill_cache,
                      cross_attention, mlp_apply, mlp_defs, norm_defs, rmsnorm,
                      sinusoidal_embedding)
 from .moe import moe_apply, moe_defs
 from .params import (ParamDef, count_params, flatten, init_tree, map_defs,
-                     stack_defs, unflatten)
+                     spec_tree, stack_defs, unflatten)
 from .rglru import rglru_block, rglru_cache_defs, rglru_defs
+from .sharding import PROFILES, constrain, einsum, remat
 from .ssm import ssm_block, ssm_cache_defs, ssm_defs
 
 # --------------------------------------------------------------- structure
@@ -78,7 +79,7 @@ def block_defs(cfg: ArchConfig, kind: str, d_ff_override: Optional[int] = None):
 def model_defs(cfg: ArchConfig):
     D, V = cfg.d_model, cfg.vocab
     defs = {
-        "embed": ParamDef((V, D), fan_in=D),
+        "embed": ParamDef((V, D), ("vocab", "embed+"), fan_in=D),
         "final_norm": norm_defs(D),
     }
     pre, sb_kinds, n_super, tail = structure(cfg)
@@ -106,8 +107,10 @@ def block_cache_defs(cfg: ArchConfig, kind: str, batch: int, ctx: int):
     d = attn_cache_defs(cfg, batch, ctx)
     if kind == "xdense":  # the encoder's K/V, written by prefill
         KH, hd = cfg.n_kv_heads, cfg.hd
-        d["xk"] = ParamDef((batch, cfg.enc_seq, KH, hd), init="zeros")
-        d["xv"] = ParamDef((batch, cfg.enc_seq, KH, hd), init="zeros")
+        d["xk"] = ParamDef((batch, cfg.enc_seq, KH, hd),
+                           ("batch", None, "kv_heads", None), init="zeros")
+        d["xv"] = ParamDef((batch, cfg.enc_seq, KH, hd),
+                           ("batch", None, "kv_heads", None), init="zeros")
     return d
 
 
@@ -123,6 +126,16 @@ def cache_defs(cfg: ArchConfig, batch: int, ctx: int):
     for i, k in enumerate(tail):
         dec[f"tail{i}"] = block_cache_defs(cfg, k, batch, ctx)
     return {"dec": dec}
+
+
+def param_pspecs(cfg: ArchConfig, mesh, profile: str = "2d"):
+    return spec_tree(model_defs(cfg), mesh, rules=PROFILES[profile][0])
+
+
+def cache_pspecs(cfg: ArchConfig, batch: int, ctx: int, mesh,
+                 profile: str = "2d"):
+    return spec_tree(cache_defs(cfg, batch, ctx), mesh,
+                     rules=PROFILES[profile][0])
 
 
 def num_params(cfg: ArchConfig) -> int:
@@ -252,9 +265,7 @@ def encode(params, cfg: ArchConfig, enc_embeds, mode: str, impl: str):
 
     if mode == "train":
         for p_i in _unstack(stack, n):
-            e = torch.utils.checkpoint.checkpoint(
-                layer, e, p_i, use_reentrant=False) if cfg.remat \
-                else layer(e, p_i)
+            e = remat(layer, e, p_i) if cfg.remat else layer(e, p_i)
     else:
         for i in range(n):
             e = layer(e, _layer(stack, i))
@@ -280,7 +291,8 @@ def forward(params, cfg: ArchConfig, tokens, *, mode: str, cache=None,
             raise ValueError(f"{cfg.name} is an encoder-decoder: {mode} needs "
                              "enc_embeds")
         enc_out = encode(params, cfg, enc_embeds, mode, impl)
-    x = params["embed"][tokens].to(cdt)
+    x = embed_tokens(params["embed"], tokens).to(cdt)
+    x = constrain(x, "batch", "seq", "embed")
     if cfg.rope_theta == 0.0:  # absolute sinusoidal positions (whisper)
         at = torch.full((1,), pos, device=x.device) if mode == "decode" \
             else torch.arange(x.shape[1], device=x.device)
@@ -314,9 +326,8 @@ def forward(params, cfg: ArchConfig, tokens, *, mode: str, cache=None,
         if mode == "train":
             # the reference's jax.checkpoint(body): only x is kept between
             # superblocks, the rest is recomputed in the backward
-            x = torch.utils.checkpoint.checkpoint(
-                superblock, x, i, enc_out, use_reentrant=False) \
-                if cfg.remat else superblock(x, i, enc_out)
+            x = remat(superblock, x, i, enc_out) if cfg.remat \
+                else superblock(x, i, enc_out)
             continue
         p_i = _layer(dec_p["stack"], i)
         c_i = _layer(dec_c["stack"], i) if mode == "decode" else None
@@ -340,6 +351,45 @@ def forward(params, cfg: ArchConfig, tokens, *, mode: str, cache=None,
     return x, cache
 
 
+def embed_tokens(table, tokens):
+    """``table[tokens]``.  Under a mesh (DTensors) each rank looks up its
+    rows of the batch in the table, gathered but for its vocab shard: the
+    tokens of other shards give zeros, and a row is the sum over the vocab
+    shards (a partial sum), as GSPMD gathers from a sharded table."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    keep, grad, rows, out, vocab = [], [], [], [], None
+    for i, (p, t) in enumerate(zip(table.placements, tokens.placements)):
+        if isinstance(t, Shard) and t.dim == 0:  # the batch's rows
+            keep.append(Replicate())
+            grad.append(Partial())
+            rows.append(t)
+            out.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim == 0:  # the vocab
+            keep.append(p)
+            grad.append(p)
+            rows.append(Replicate())
+            out.append(Partial())
+            vocab = i
+        else:
+            keep.append(Replicate())
+            grad.append(Replicate())
+            rows.append(Replicate())
+            out.append(Replicate())
+    local = table.redistribute(mesh, keep).to_local(grad_placements=grad)
+    tok = tokens.redistribute(mesh, rows).to_local().long()
+    if vocab is None:
+        x = local[tok]
+    else:
+        V = local.shape[0]
+        tok = tok - mesh.get_local_rank(vocab) * V
+        x = torch.where(((tok >= 0) & (tok < V))[..., None],
+                        local[tok.clamp(0, V - 1)], 0)
+    return DTensor.from_local(x, mesh, out, run_check=False)
+
+
 def logits_from_hidden(params, h, cfg: ArchConfig):
     """Tied-embedding LM head, in f32."""
-    return torch.einsum("bsd,vd->bsv", h.float(), params["embed"].float())
+    return einsum("bsd,vd->bsv", h.float(), params["embed"].float())

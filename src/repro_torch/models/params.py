@@ -1,9 +1,9 @@
-"""Parameter/cache definition trees (``repro/models/params.py`` without the
-sharding parts).
+"""Parameter/cache definition trees (``repro/models/params.py``).
 
 Components describe their parameters once as nested dicts of ``ParamDef``
-(shape + init); the same tree materialises as torch tensors or counts its
-parameters, so shapes and inits cannot drift apart.
+(shape + logical sharding axes + init); the same tree materialises as torch
+tensors, counts its parameters, or gives each leaf's partition spec on a
+mesh (``spec_tree``), so shapes, inits and shardings cannot drift apart.
 """
 from __future__ import annotations
 
@@ -13,10 +13,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .sharding import PARAM_RULES, spec_for
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    axes: Tuple
     init: str = "normal"  # normal | zeros | ones | a_log
     fan_in: Optional[int] = None  # for normal init scale 1/sqrt(fan_in)
     dtype: Optional[str] = None  # override tree dtype (e.g. f32 states)
@@ -33,9 +36,11 @@ def map_defs(fn, tree):
 
 
 def stack_defs(tree, n: int):
-    """Prepend a stacked-layers dim to every def."""
-    return map_defs(
-        lambda d: dataclasses.replace(d, shape=(n,) + tuple(d.shape)), tree)
+    """Prepend a stacked-layers dim (unsharded) to every def."""
+    def f(d: ParamDef) -> ParamDef:
+        return dataclasses.replace(d, shape=(n,) + tuple(d.shape),
+                                   axes=(None,) + tuple(d.axes))
+    return map_defs(f, tree)
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, object]:
@@ -81,6 +86,10 @@ def init_tree(tree, generator: torch.Generator, dtype: torch.dtype):
         return (x / math.sqrt(fan)).to(dt)
 
     return unflatten({k: make(d) for k, d in flatten(tree).items()})
+
+
+def spec_tree(tree, mesh, rules=PARAM_RULES):
+    return map_defs(lambda d: spec_for(d.shape, d.axes, mesh, rules), tree)
 
 
 def count_params(tree) -> int:

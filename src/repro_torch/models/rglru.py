@@ -14,6 +14,7 @@ from ..configs.base import ArchConfig
 from ..kernels.rglru_scan.ops import rglru_scan
 from .layers import causal_conv
 from .params import ParamDef
+from .sharding import constrain, einsum, matmul
 
 _C = 8.0
 
@@ -23,16 +24,16 @@ def rglru_defs(cfg: ArchConfig):
     R = cfg.rnn_width or D
     W = cfg.conv_width
     return {
-        "wx": ParamDef((D, R), fan_in=D),
-        "wgate": ParamDef((D, R), fan_in=D),
-        "conv_w": ParamDef((W, R), fan_in=W),
-        "conv_b": ParamDef((R,), init="zeros"),
-        "w_i": ParamDef((R, R), fan_in=R),
-        "b_i": ParamDef((R,), init="zeros"),
-        "w_r": ParamDef((R, R), fan_in=R),
-        "b_r": ParamDef((R,), init="zeros"),
-        "lam": ParamDef((R,), init="ones"),
-        "out": ParamDef((R, D), fan_in=R),
+        "wx": ParamDef((D, R), ("embed", "inner"), fan_in=D),
+        "wgate": ParamDef((D, R), ("embed", "inner"), fan_in=D),
+        "conv_w": ParamDef((W, R), ("conv", "inner"), fan_in=W),
+        "conv_b": ParamDef((R,), ("inner",), init="zeros"),
+        "w_i": ParamDef((R, R), ("inner", None), fan_in=R),
+        "b_i": ParamDef((R,), ("inner",), init="zeros"),
+        "w_r": ParamDef((R, R), ("inner", None), fan_in=R),
+        "b_r": ParamDef((R,), ("inner",), init="zeros"),
+        "lam": ParamDef((R,), ("inner",), init="ones"),
+        "out": ParamDef((R, D), ("inner", "embed"), fan_in=R),
     }
 
 
@@ -40,15 +41,26 @@ def rglru_cache_defs(cfg: ArchConfig, batch: int):
     """The conv window (pre-conv inputs, compute dtype) and the f32 state."""
     R = cfg.rnn_width or cfg.d_model
     return {
-        "conv": ParamDef((batch, cfg.conv_width - 1, R), init="zeros"),
-        "h": ParamDef((batch, R), init="zeros", dtype="float32"),
+        "conv": ParamDef((batch, cfg.conv_width - 1, R),
+                         ("batch", None, "inner"), init="zeros"),
+        "h": ParamDef((batch, R), ("batch", "inner"), init="zeros",
+                      dtype="float32"),
     }
+
+
+def _inner(h):
+    """A gate's product, its channels on `model` under a mesh, where the
+    product sums over sharded channels: reduced and scattered before the
+    bias (placed alike) is added, as GSPMD places it."""
+    return constrain(h, "batch", None, "inner")
 
 
 def _gates(p, xc):
     """The decay a and the gated input u of the recurrence, both f32."""
-    i = torch.sigmoid(xc @ p["w_i"].to(xc.dtype) + p["b_i"].to(xc.dtype))
-    r = torch.sigmoid(xc @ p["w_r"].to(xc.dtype) + p["b_r"].to(xc.dtype))
+    i = torch.sigmoid(_inner(matmul(xc, p["w_i"].to(xc.dtype)))
+                      + p["b_i"].to(xc.dtype))
+    r = torch.sigmoid(_inner(matmul(xc, p["w_r"].to(xc.dtype)))
+                      + p["b_r"].to(xc.dtype))
     log_a = -_C * F.softplus(p["lam"].float()) * r.float()
     a = torch.exp(log_a)
     u = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) \
@@ -64,8 +76,9 @@ def rglru_block(p, x, cfg: ArchConfig, mode: str, cache=None, impl="auto"):
     donated cache buffer."""
     B, S, _ = x.shape
     W = cfg.conv_width
-    xb = x @ p["wx"].to(x.dtype)
-    gate = F.gelu(x @ p["wgate"].to(x.dtype), approximate="tanh")
+    xb = matmul(x, p["wx"].to(x.dtype))
+    xb = constrain(xb, "batch", None, "inner")
+    gate = F.gelu(matmul(x, p["wgate"].to(x.dtype)), approximate="tanh")
 
     if mode in ("train", "prefill"):
         xc = causal_conv(xb, p["conv_w"], p["conv_b"])  # no activation
@@ -81,7 +94,7 @@ def rglru_block(p, x, cfg: ArchConfig, mode: str, cache=None, impl="auto"):
             cache = {"conv": conv.contiguous(), "h": h_final}
     elif mode == "decode":
         xb_full = torch.cat([cache["conv"].to(xb.dtype), xb], dim=1)  # (B, W, R)
-        xc = torch.einsum("bwc,wc->bc", xb_full, p["conv_w"].to(x.dtype))
+        xc = einsum("bwc,wc->bc", xb_full, p["conv_w"].to(x.dtype))
         xc = (xc + p["conv_b"].to(x.dtype))[:, None, :]
         a, u = _gates(p, xc)
         h = a[:, 0] * cache["h"] + u[:, 0]
@@ -93,4 +106,5 @@ def rglru_block(p, x, cfg: ArchConfig, mode: str, cache=None, impl="auto"):
                          "decode)")
 
     y = y * gate
-    return y @ p["out"].to(x.dtype), cache
+    y = constrain(y, "batch", None, "inner")
+    return matmul(y, p["out"].to(x.dtype)), cache

@@ -9,6 +9,7 @@ from ..configs.base import ArchConfig
 from ..kernels.ssd_scan.ops import ssd, ssd_decode_step
 from .layers import causal_conv, rmsnorm
 from .params import ParamDef
+from .sharding import constrain, einsum, matmul
 
 
 def _dims(cfg: ArchConfig):
@@ -23,18 +24,18 @@ def ssm_defs(cfg: ArchConfig):
     D = cfg.d_model
     d_inner, H, G, N, W, conv_ch = _dims(cfg)
     return {
-        "wz": ParamDef((D, d_inner), fan_in=D),
-        "wx": ParamDef((D, d_inner), fan_in=D),
-        "wB": ParamDef((D, G * N), fan_in=D),
-        "wC": ParamDef((D, G * N), fan_in=D),
-        "wdt": ParamDef((D, H), fan_in=D),
-        "dt_bias": ParamDef((H,), init="zeros"),
-        "conv_w": ParamDef((W, conv_ch), fan_in=W),
-        "conv_b": ParamDef((conv_ch,), init="zeros"),
-        "A_log": ParamDef((H,), init="a_log"),
-        "D": ParamDef((H,), init="ones"),
-        "norm": ParamDef((d_inner,), init="ones"),
-        "out": ParamDef((d_inner, D), fan_in=d_inner),
+        "wz": ParamDef((D, d_inner), ("embed", "inner"), fan_in=D),
+        "wx": ParamDef((D, d_inner), ("embed", "inner"), fan_in=D),
+        "wB": ParamDef((D, G * N), ("embed", None), fan_in=D),
+        "wC": ParamDef((D, G * N), ("embed", None), fan_in=D),
+        "wdt": ParamDef((D, H), ("embed", "heads"), fan_in=D),
+        "dt_bias": ParamDef((H,), ("heads",), init="zeros"),
+        "conv_w": ParamDef((W, conv_ch), ("conv", "inner"), fan_in=W),
+        "conv_b": ParamDef((conv_ch,), ("inner",), init="zeros"),
+        "A_log": ParamDef((H,), ("heads",), init="a_log"),
+        "D": ParamDef((H,), ("heads",), init="ones"),
+        "norm": ParamDef((d_inner,), ("inner",), init="ones"),
+        "out": ParamDef((d_inner, D), ("inner", "embed"), fan_in=d_inner),
     }
 
 
@@ -42,8 +43,10 @@ def ssm_cache_defs(cfg: ArchConfig, batch: int):
     """The conv window (pre-conv inputs, compute dtype) and the f32 state."""
     d_inner, H, G, N, W, conv_ch = _dims(cfg)
     return {
-        "conv": ParamDef((batch, W - 1, conv_ch), init="zeros"),
-        "state": ParamDef((batch, H, cfg.ssm_headdim, N), init="zeros",
+        "conv": ParamDef((batch, W - 1, conv_ch), ("batch", None, "inner"),
+                         init="zeros"),
+        "state": ParamDef((batch, H, cfg.ssm_headdim, N),
+                          ("batch", "heads", None, None), init="zeros",
                           dtype="float32"),
     }
 
@@ -53,10 +56,11 @@ def _causal_conv(u, w, b):
 
 
 def _projections(p, x, cfg: ArchConfig):
-    dt_raw = x @ p["wdt"].to(x.dtype)
-    z = x @ p["wz"].to(x.dtype)
-    u = torch.cat([x @ p["wx"].to(x.dtype), x @ p["wB"].to(x.dtype),
-                   x @ p["wC"].to(x.dtype)], dim=-1)
+    dt_raw = matmul(x, p["wdt"].to(x.dtype))
+    z = matmul(x, p["wz"].to(x.dtype))
+    u = torch.cat([matmul(x, p["wx"].to(x.dtype)),
+                   matmul(x, p["wB"].to(x.dtype)),
+                   matmul(x, p["wC"].to(x.dtype))], dim=-1)
     return z, u, dt_raw
 
 
@@ -77,6 +81,7 @@ def ssm_block(p, x, cfg: ArchConfig, mode: str, cache=None, impl="auto"):
     B, S, _ = x.shape
     d_inner, H, G, N, W, conv_ch = _dims(cfg)
     z, u, dt_raw = _projections(p, x, cfg)
+    z = constrain(z, "batch", None, "inner")
     A = -torch.exp(p["A_log"].float())
     Dskip = p["D"].float()
 
@@ -97,7 +102,7 @@ def ssm_block(p, x, cfg: ArchConfig, mode: str, cache=None, impl="auto"):
             cache = {"conv": conv.contiguous(), "state": h_final}
     elif mode == "decode":
         u_full = torch.cat([cache["conv"].to(u.dtype), u], dim=1)  # (B, W, C)
-        cu = torch.einsum("bwc,wc->bc", u_full, p["conv_w"].to(u.dtype))
+        cu = einsum("bwc,wc->bc", u_full, p["conv_w"].to(u.dtype))
         cu = F.silu(cu + p["conv_b"].to(u.dtype))
         xc, Bc, Cc = _split_conv(cu, cfg, (B,))
         dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"].float())
@@ -112,4 +117,5 @@ def ssm_block(p, x, cfg: ArchConfig, mode: str, cache=None, impl="auto"):
                          "decode)")
 
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.norm_eps)
-    return y @ p["out"].to(x.dtype), cache
+    y = constrain(y, "batch", None, "inner")
+    return matmul(y, p["out"].to(x.dtype)), cache

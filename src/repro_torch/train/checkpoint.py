@@ -8,8 +8,9 @@ the arrays on ``device``: the card unless the caller asks for the CPU, and
 without a card it raises.  numpy has no bf16 type, so a bf16 tensor is saved
 as its 16-bit pattern (int16) and the manifest records every key's dtype
 (``dtypes``); restore views those bits as bf16 again.  A manifest without
-``dtypes`` (the reference's) restores each array in its own type.  Resharding onto a mesh waits for the port's
-sharding work.
+``dtypes`` (the reference's) restores each array in its own type.  A
+DTensor is saved whole (gathered from its shards); the train launcher places
+a restored state on its mesh.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..kernels.shards import is_dtensor
 from ..models.params import flatten as _flatten
 from ..models.params import unflatten as _unflatten
 
@@ -32,6 +34,8 @@ def _host_arrays(state) -> Tuple[dict, dict]:
     reach a pending write; a bf16 tensor as its bits, int16."""
     arrays, dtypes = {}, {}
     for k, v in _flatten(state).items():
+        if is_dtensor(v):
+            v = v.full_tensor()
         v = v.detach().to("cpu", copy=True)
         dtypes[k] = str(v.dtype).removeprefix("torch.")
         arrays[k] = (v.view(torch.int16) if v.dtype == torch.bfloat16 else v).numpy()

@@ -12,6 +12,10 @@ of them alive at once, which for one of granite-moe-3b-a800m's 4 GB expert
 stacks is 30 GB beside its 52.8 GB of state.  So a large leaf is updated in
 slices along its first dimension, ``SLICE_ELEMENTS`` at most at a time;
 each element's arithmetic is the same, so the result is too, bit for bit.
+
+Under a mesh the parameters, gradients and moments are DTensors, each
+leaf's placed alike: the global norm is a DTensor reduction, and the update,
+elementwise, runs on each rank's shards.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import math
 
 import torch
 
+from ..kernels.shards import is_dtensor
 from ..models.params import flatten, unflatten
 
 
@@ -67,6 +72,12 @@ def init_opt_state(params):
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _local(t):
+    """A DTensor's shard on this rank (replicated for a scalar), else the
+    tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in flatten(tree).values()))
@@ -82,20 +93,23 @@ def adamw_update(params, grads, opt_state, oc: OptConfig):
     lr = lr_at(step, oc)
     c1 = 1.0 - oc.b1 ** step.float()
     c2 = 1.0 - oc.b2 ** step.float()
+    scale, lr, c1, c2 = (_local(t) for t in (scale, lr, c1, c2))
     flat_g = flatten(grads)
     flat_m, flat_v = flatten(opt_state["m"]), flatten(opt_state["v"])
-    for key, leaf in flatten(params).items():
+    for key, whole in flatten(params).items():
+        leaf, grad, mom, vel = (_local(t) for t in (
+            whole, flat_g[key], flat_m[key], flat_v[key]))
         for sl in _slices(leaf):
             p = leaf[sl]
-            g = flat_g[key][sl].float() * scale
-            m = oc.b1 * flat_m[key][sl].float() + (1 - oc.b1) * g
-            v = oc.b2 * flat_v[key][sl].float() + (1 - oc.b2) * g * g
+            g = grad[sl].float() * scale
+            m = oc.b1 * mom[sl].float() + (1 - oc.b1) * g
+            v = oc.b2 * vel[sl].float() + (1 - oc.b2) * g * g
             mhat = m / c1
             vhat = v / c2
             delta = mhat / (torch.sqrt(vhat) + oc.eps)
             if leaf.ndim >= 2:  # decoupled weight decay on matrices only
                 delta = delta + oc.weight_decay * p.float()
             p.copy_(p.float() - lr * delta)
-            flat_m[key][sl].copy_(m)
-            flat_v[key][sl].copy_(v)
+            mom[sl].copy_(m)
+            vel[sl].copy_(v)
     return params, {"m": opt_state["m"], "v": opt_state["v"], "step": step}, gn
