@@ -45,6 +45,10 @@ Phases; any that fails ends the run with a non-zero exit:
        kernel's query walk cut into other numbers of parts than
        ``bwd_splits`` picks (1, 3, more parts than query tiles) at a ragged
        S, window 1, a window inside a tile, KH > 1 and the training shape;
+       then bf16 at head_dim 16 and 64 (the warpgroup kernels) at ragged
+       lengths with G 3 (WG_GRID); every bf16 case at head_dim 16 and 64 is
+       launched twice, and the second launch's dq, dk and dv must equal the
+       first's to the bit;
      - rglru_scan_bwd against ``rglru_scan_bwd_ref`` over rglru_scan's grid
        and recurrentgemma-2b's training shape, with and without dh_final,
        f32 and bf16 (1e-5; bf16 da and du one bf16 step, 8e-3);
@@ -415,6 +419,12 @@ GRAD_BATCH = {"qwen3-0.6b": BATCH, "mamba2-780m": 1, "recurrentgemma-2b": 1,
               "granite-moe-3b-a800m": 1, "whisper-medium": BATCH}
 RG_TRAIN_SHAPE = (4, 2048, 10, 1, 256, 2048, True)  # recurrentgemma-2b's attention
 RG_TRAIN_SHAPE_B1 = (1,) + RG_TRAIN_SHAPE[1:]  # ... at the training cell's batch
+# bf16 cases of the warpgroup dK/dV and dQ kernels (a warpgroup of 64 keys
+# or queries a block) at a ragged S whose last block holds 22 rows, with G 3:
+# causal at head_dim 64, not causal at 16.  The physical mode's S 32 (one
+# partial block, CLUSTER_SHAPES) and granite-moe-3b-a800m's G 3
+# (GRANITE_SHAPE) are in the grid above.
+WG_GRID = [(2, 150, 6, 2, 64, None, True), (1, 150, 3, 1, 16, None, False)]
 # bf16 head_dim-256 cases with the dK/dV kernel's query walk cut into a
 # given number of parts, (shape, splits): a ragged S, window 1 and more
 # parts than query tiles, a window inside a tile with KH > 1, unsplit, a
@@ -560,11 +570,12 @@ def spill_gate(logs: dict) -> None:
     (P, N) their wrappers take and ssd_state_pass; and the same of the f32
     flash kernel, of the
     flash backward's three kernels, one per head_dim and type (bf16 at
-    head_dim 256: the eight-warp kernels), of the SSD backward's three, one
+    head_dim 16 and 64: the warpgroup kernels; at 256 the eight-warp
+    kernels), of the SSD backward's three, one
     per (P, N) and type, and of the RG-LRU backward, one per type."""
     import re
     from repro_torch.kernels.flash_attention.kernel import (
-        HEAD_DIMS, TC_BWD_HEAD_DIMS, WIDE_BWD_HEAD_DIMS)
+        HEAD_DIMS, TC_BWD_HEAD_DIMS, WG_BWD_HEAD_DIMS, WIDE_BWD_HEAD_DIMS)
     from repro_torch.kernels.ssd_scan.kernel import PN_PAIRS
     n_tc, n_wide = len(TC_BWD_HEAD_DIMS), len(WIDE_BWD_HEAD_DIMS)
     # the tensor-core forward once without L (served) and once with it
@@ -573,8 +584,8 @@ def spill_gate(logs: dict) -> None:
               ("flash_attn_bwd", "flash_attn_bwd_pre_kernel", 2 * len(HEAD_DIMS)),
               *(("flash_attn_bwd", f"flash_attn_bwd_{name}_kernel",
                  2 * len(HEAD_DIMS) - n_tc) for name in ("dkdv", "dq")),
-              *(("flash_attn_bwd", f"flash_attn_bwd_{name}_tc_kernel",
-                 n_tc - n_wide) for name in ("dkdv", "dq")),
+              *(("flash_attn_bwd", f"flash_attn_bwd_{name}_wg_kernel",
+                 len(WG_BWD_HEAD_DIMS)) for name in ("dkdv", "dq")),
               *(("flash_attn_bwd", f"flash_attn_bwd_{name}_wide_kernel", n_wide)
                 for name in ("dkdv", "dq")),
               ("ssd_bf16", "ssd_chunk_state_kernel", len(PN_PAIRS)),
@@ -1065,14 +1076,14 @@ def bwd_kernel_vs_plain(device) -> dict:
     the same q, k, v, o, L and dO (D against rowsum(dO o O), dq, dk and dv
     against ``attention_bwd_ref``), over flash_attn_fwd's grid and the
     training shapes, f32 and bf16, the dK/dV kernel split as ``bwd_splits``
-    picks; then bf16 over SPLIT_GRID with the parts given.  Returns, by
+    picks; then bf16 over SPLIT_GRID with the parts given and over WG_GRID;
+    bf16 at head_dim 16 and 64 launched twice, to the bit.  Returns, by
     training and physical-mode shape, the max abs errors in bf16 (the main
     paths' cases)."""
     import torch
-    from repro_torch.kernels.flash_attention.kernel import (BWD_KERNELS,
-                                                            bwd_buffers,
-                                                            flash_attention_fwd,
-                                                            launch_bwd)
+    from repro_torch.kernels.flash_attention.kernel import (
+        BWD_KERNELS, WG_BWD_HEAD_DIMS, bwd_buffers, flash_attention_fwd,
+        launch_bwd)
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          lse_ref)
     check(BWD_KERNELS == BWD_KERNEL_NAMES, f"backward kernels {BWD_KERNELS}")
@@ -1084,6 +1095,8 @@ def bwd_kernel_vs_plain(device) -> dict:
         for name in ("float32", "bfloat16")]
     cases += [(200 + j, shape, "bfloat16", splits)
               for j, (shape, splits) in enumerate(SPLIT_GRID)]
+    cases += [(300 + j, shape, "bfloat16", None)
+              for j, shape in enumerate(WG_GRID)]
     for i, shape, name, splits in cases:
         dtype = getattr(torch, name)
         q, k, v = qkv(shape, dtype, device, seed=400 + i)
@@ -1096,6 +1109,13 @@ def bwd_kernel_vs_plain(device) -> dict:
                            splits=splits)
         for kernel in BWD_KERNELS:
             launch_bwd(kernel, bufs, causal=causal, window=window)
+        if name == "bfloat16" and hd in WG_BWD_HEAD_DIMS:
+            again = bwd_buffers(q, k, v, o, lse, do, window=window)
+            for kernel in BWD_KERNELS:
+                launch_bwd(kernel, again, causal=causal, window=window)
+            torch.cuda.synchronize(device)
+            check(all(torch.equal(bufs[w], again[w]) for w in ("dq", "dk", "dv")),
+                  f"two launches of the flash backward differ at {shape}")
         torch.cuda.synchronize(device)
         ref = dict(zip(("dq", "dk", "dv"), attention_bwd_ref(
             q, k, v, o, lse, do, causal=causal, window=window)))
@@ -3245,21 +3265,27 @@ def main() -> int:
         "note": "no TPU counterpart: the gradient of flash_attention_pallas",
         "design": {
             "flash_attn_bwd_pre": "D = rowsum(dO o O), a warp a row",
-            "flash_attn_bwd_dkdv": "a block per (batch x KV head, 64 keys) "
+            "flash_attn_bwd_dkdv": "a block per (batch x KV head, key tile) "
                                    "walks the group's heads and query tiles, "
                                    "dK and dV written once; bf16 at hd 16 and "
-                                   "64: tensor cores (mma.sync m16n8k16, "
-                                   "ldmatrix, two cp.async stages, P and dS "
-                                   "in registers); bf16 at hd 256: eight "
-                                   "warps (a row group and a column half "
-                                   "each, P and dS through shared memory), "
-                                   "the walk cut into bwd_splits parts whose "
-                                   "f32 partials PyTorch sums; f32: CUDA "
-                                   "cores",
-            "flash_attn_bwd_dq": "a block per (batch x head, 64 queries) walks "
-                                 "the key tiles; bf16 at hd 16 and 64: tensor "
-                                 "cores as dkdv; bf16 at hd 256: eight warps "
-                                 "as dkdv; f32: CUDA cores"}[name],
+                                   "64: a warpgroup of 64 keys a block, three "
+                                   "blocks an SM (wgmma m64n64k16 S and dP "
+                                   "from shared-memory descriptors, P and dS "
+                                   "packed to bf16 in registers as the A of "
+                                   "dV and dK, three cp.async stages of Q and "
+                                   "dO); bf16 at hd "
+                                   "256: eight warps (a row group and a "
+                                   "column half each, mma.sync, P and dS "
+                                   "through shared memory), the walk cut into "
+                                   "bwd_splits parts whose f32 partials "
+                                   "PyTorch sums; f32: CUDA cores",
+            "flash_attn_bwd_dq": "a block per (batch x head, query tile) walks "
+                                 "the key tiles; bf16 at hd 16 and 64: a "
+                                 "warpgroup of 64 queries a block, three "
+                                 "blocks an SM (wgmma, dS in registers, K "
+                                 "and V in three stages), no atomics; bf16 "
+                                 "at hd 256: eight warps as "
+                                 "dkdv; f32: CUDA cores"}[name],
         # over the training paths and the physical mode; times at
         # qwen3-0.6b's training shape, the other shapes' under "shapes"
         "launches": sum(n.get(name, 0) for n in trained_launches),

@@ -37,9 +37,10 @@
 //     recomputes S and dP (two products more than the minimum of five);
 //   * D = rowsum(dO o O) first, a warp a row.
 //
-// bf16 at head_dim 16 and 64 (qwen3-0.6b's and the reduced configs'): the
-// tensor-core kernels (`*_tc_kernel`, described where they are defined),
-// mma.sync on bf16 tiles with P and dS in registers.  bf16 at head_dim 256
+// bf16 at head_dim 16 and 64 (qwen3-0.6b's, granite-moe-3b-a800m's,
+// whisper-medium's and the reduced configs'): the warpgroup kernels
+// (`*_wg_kernel`, described where they are defined), wgmma on bf16 tiles
+// read through shared-memory descriptors, P and dS in registers.  bf16 at head_dim 256
 // (recurrentgemma-2b's): the eight-warp tensor-core kernels
 // (`*_wide_kernel`), P and dS through shared memory, the dK/dV walk split
 // into parts so that batch 1 fills the card.
@@ -396,29 +397,14 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 
 // ---------------------------------------------------------------------------
-// bf16 at head_dim 16 and 64: the tensor-core kernels.  The products are
-// `mma.sync.aligned.m16n8k16` with bf16 operands and f32 accumulators, the
-// tiles bf16 in XOR-swizzled shared memory read by `ldmatrix` (the forward's
-// helpers, flash_common.cuh), the next tile in flight by `cp.async` while
-// this one is computed.  A warp owns 16 rows of the block's 64 (keys in
-// dK/dV, queries in dQ), so P, dP and dS of its rows never leave registers:
-// the f32 accumulator of two 8-column n-tiles is, element for element, the
-// A fragment of one 16-deep k-slice of the next product, packed to bf16 in
-// place (P and dS are rounded to bf16 for their products, as in every
-// tensor-core flash backward; sums stay f32).
+// Tiles of the tensor-core kernels: 64 rows of bf16 in XOR-swizzled shared
+// memory (flash_common.cuh), copied by `cp.async`; the wide kernels below
+// read them by `ldmatrix` for mma.sync, the warpgroup kernels through wgmma
+// descriptors.
 
-constexpr int TC_THREADS = 128;  // four warps
+constexpr int TC_THREADS = 128;  // four warps: one warpgroup
 constexpr int TC_ROWS = 64;      // query rows and keys of a tile
-template <int HD> __host__ __device__ constexpr bool tc_path() { return HD == 16 || HD == 64; }
-// dK/dV: K and V of the block, then two stages of (Q, dO), then two of (L, D).
-// dQ: Q and dO of the block, then two stages of (K, V).
 template <int HD> __host__ __device__ constexpr int tc_tile_bytes() { return TC_ROWS * HD * 2; }
-template <int HD> __host__ __device__ constexpr int tc_dkdv_smem_bytes() {
-  return 6 * tc_tile_bytes<HD>() + 2 * 2 * TC_ROWS * 4;
-}
-template <int HD> __host__ __device__ constexpr int tc_dq_smem_bytes() {
-  return 6 * tc_tile_bytes<HD>();
-}
 
 // Copies a 64-row bf16 tile of a (B, S, heads, HD) tensor, from position
 // pos0 of head `head`, into a swizzled tile at `dst`; rows past S are zeros.
@@ -462,29 +448,6 @@ __device__ __forceinline__ void tc_rows_by_rows(float (&acc)[NB / 8][4], uint32_
   }
 }
 
-// out += X (16 rows x 64, the accumulator `x` packed to bf16) . T, where T is
-// a swizzled 64-row tile at `tt` (its rows the k dimension, head_dim the n
-// dimension, read by ldmatrix.trans).
-template <int HD>
-__device__ __forceinline__ void tc_acc_times_tile(float (&out)[HD / 8][4],
-                                                  const float (&x)[TC_ROWS / 8][4], uint32_t tt,
-                                                  const LaneReads<HD / 8>& a_reads) {
-#pragma unroll
-  for (int kk = 0; kk < TC_ROWS / 16; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int p = 0; p < HD / 16; ++p) {
-      uint32_t bm[4];
-      ldmatrix_x4_trans(bm, tt + a_reads.at(16 * kk, 2 * p));
-      mma_bf16(out[2 * p], a, bm[0], bm[1]);
-      mma_bf16(out[2 * p + 1], a, bm[2], bm[3]);
-    }
-  }
-}
-
 // Two neighbouring values of an output row, as bf16 or f32.
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
@@ -495,7 +458,8 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 
 // Writes a warp's 16 rows (row0 + g, row0 + g + 8) of an f32 accumulator of
 // NC columns, times `mul`, into columns col0 .. col0 + NC - 1 of a
-// (B, S, heads, HD) tensor of bf16 or f32.
+// (B, S, heads, HD) tensor of bf16 or f32.  The accumulator layout is
+// mma.sync's m16n8 one and, for the warp's rows, wgmma's m64nN one.
 template <int HD, int NC = HD, typename T>
 __device__ __forceinline__ void tc_store_rows(T* __restrict__ dst, const float (&acc)[NC / 8][4],
                                               float mul, int b, int row0, int S, int heads,
@@ -513,32 +477,112 @@ __device__ __forceinline__ void tc_store_rows(T* __restrict__ dst, const float (
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at head_dim 16 and 64: the warpgroup kernels (wgmma.mma_async).  A
+// block is one warpgroup (four warps) and owns 64 rows: keys in dK/dV,
+// queries in dQ; three blocks share an SM.
+//   * dK/dV: a block per (batch * KV head, 64 keys) walks the group's H/KH
+//     query heads and the 64-query tiles that can see its keys, Q, dO, L
+//     and D of each tile in a ring of WG_STAGES stages filled by cp.async
+//     two tiles ahead.  Per tile: S^T = K Q^T and dP^T = V dO^T as
+//     m64n64k16 over head_dim (A the K or V tile, B the Q or dO tile, both
+//     K-major in shared memory), P and dS in f32 in the accumulators, then
+//     dV += P^T dO and dK += dS^T Q as m64n{hd}k16 with A = P^T or dS^T
+//     packed to bf16 in registers (the m64 accumulator of 16 query columns
+//     is, element for element, the A fragment of one k-step) and B the dO
+//     or Q tile read MN-major;
+//   * dQ: a block per (batch * head, 64 queries) walks the key tiles with K
+//     and V in the ring: S = Q K^T and dP = dO V^T (Q and dO the A tiles),
+//     dQ += dS K (B the K tile, MN-major).  dQ recomputes S and dP, so that
+//     no output is summed across blocks: no atomics, the same bits every run.
+// The S and dP products are committed as two groups, so the exponentials of
+// P run while dP is in flight.  The walks' bounds are exact at 64 rows: every
+// tile of a walk has a pair the masks keep, so no branch skips a wgmma
+// (ptxas serializes every wgmma of a kernel where a divergent path may skip
+// one).  The masks are evaluated only on tiles that cross the diagonal, the
+// window's edge or S, as two comparisons against the bounds of the columns
+// that each of a thread's rows sees.
+// What bounds them on the H100: the four products of dK/dV and three of dQ
+// at the tensor cores' rate, and between them a block's own exponentials
+// (the SFU's 16 a clock an SM), scaling and packing of P and dS, which its
+// next products wait for.  So a block is one warpgroup and three blocks
+// share an SM (dK/dV holds S, dP, dK and dV, 128 f32 registers a thread,
+// within the 168 that three blocks allow): one block's products run while
+// another computes its exponentials.  Two warpgroups in one block met at
+// every tile's barrier and computed their exponentials in step, with the
+// tensor cores idle.
+
+constexpr int WG_STAGES = 3;  // tiles of the walk in shared memory
+template <int HD> __host__ __device__ constexpr bool tc_path() { return HD == 16 || HD == 64; }
+// dK/dV: K and V of the block, WG_STAGES tiles of Q, of dO, then
+// [stage][L | D][64] f32.  dQ: Q and dO of the block, WG_STAGES tiles of K,
+// of V.  Each 1024 bytes more, to align the tiles for the swizzles.
+template <int HD> __host__ __device__ constexpr int wg_dkdv_smem_bytes() {
+  return 1024 + (2 + 2 * WG_STAGES) * tc_tile_bytes<HD>() + WG_STAGES * 2 * TC_ROWS * 4;
+}
+template <int HD> __host__ __device__ constexpr int wg_dq_smem_bytes() {
+  return 1024 + (2 + 2 * WG_STAGES) * tc_tile_bytes<HD>();
+}
+
+// The A fragments of four k-steps (16 columns each) of a 64-column f32
+// accumulator, packed to bf16.
+__device__ __forceinline__ void wg_acc_to_a(uint32_t (&a)[4][4], const float (&x)[TC_ROWS / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    a[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    a[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  }
+}
+
+// acc (64 x 64) = A B^T over head_dim: A and B 64-row tiles at `a` and `b`.
 template <int HD>
-__global__ void __launch_bounds__(TC_THREADS, 2)
-flash_attn_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+__device__ __forceinline__ void wg_rows_by_rows(float (&acc)[TC_ROWS / 8][4], uint32_t a,
+                                                uint32_t b) {
+  const uint64_t da = wgmma_desc<HD / 8>(a), db = wgmma_desc<HD / 8>(b);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)  // k-steps of 32 bytes along the rows
+    wgmma_ss(acc, da + 2 * kk, db + 2 * kk, kk);
+}
+
+// out (64 x HD) += X T: X the A fragments of 64 columns, T a 64-row tile at
+// `tt` (its rows the k dimension, read MN-major).
+template <int HD>
+__device__ __forceinline__ void wg_acc_times_tile(float (&out)[HD / 8][4], const uint32_t (&x)[4][4],
+                                                  uint32_t tt) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)  // k-steps of 16 rows
+    wgmma_rs<HD>(out, x[kk], wgmma_desc<HD / 8>(tt + kk * 16 * HD * 2));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS, 3)
+flash_attn_bwd_dkdv_wg_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
                               const __nv_bfloat16* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                               int S, int H, int KH, float scale, int causal, int window) {
-  constexpr int W = HD / 8, NT = TC_ROWS / 8, TILE = tc_tile_bytes<HD>();
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  const uint32_t ks = smem_addr(tc_smem), vs = ks + TILE;
-  const uint32_t qs = vs + TILE;          // two stages of Q, then two of dO
-  const uint32_t gs = qs + 2 * TILE;
-  float* rowstat = reinterpret_cast<float*>(tc_smem + 6 * TILE);  // [stage][L | D][64]
+  constexpr int NT = TC_ROWS / 8, TILE = tc_tile_bytes<HD>();
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t raw = smem_addr(wg_smem), base = (raw + 1023) & ~1023u;
+  const uint32_t ks = base, vs = ks + TILE;
+  const uint32_t qs = vs + TILE;  // WG_STAGES tiles of Q, then of dO
+  const uint32_t gs = qs + WG_STAGES * TILE;
+  const float* rowstat = reinterpret_cast<const float*>(wg_smem + (base - raw) +
+                                                       (2 + 2 * WG_STAGES) * TILE);
 
   const int b = blockIdx.x / KH, kh = blockIdx.x % KH, G = H / KH;
   const int n0 = blockIdx.y * TC_ROWS;  // tile 0, the most expensive under a causal mask, first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, mat = lane / 8, r8 = lane % 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int wk0 = n0 + 16 * warp;  // the warp's first key
   const float scale_log2 = scale * LOG2E;
 
-  // The query tiles that can see a key of this tile, for each head of the group.
+  // The query tiles that can see a key of the block, for each head of the group.
   int m_begin = 0, m_end = S;
-  if (causal) m_begin = n0 / TC_ROWS * TC_ROWS;
+  if (causal) m_begin = n0;
   if (window > 0) m_end = (int)min((long long)S, (long long)n0 + TC_ROWS - 1 + window);
   const int per_head = (m_end - m_begin + TC_ROWS - 1) / TC_ROWS;
   const int n_iter = G * per_head;
@@ -547,22 +591,28 @@ flash_attn_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int h = kh * G + it / per_head, m0 = m_begin + (it % per_head) * TC_ROWS;
     tc_load_tile<HD>(qs + stage * TILE, q, b, m0, S, H, h);
     tc_load_tile<HD>(gs + stage * TILE, dout, b, m0, S, H, h);
-    if (threadIdx.x < 2 * TC_ROWS) {  // L and D of the tile's rows
-      const int i = threadIdx.x % TC_ROWS, which = threadIdx.x / TC_ROWS;
-      const float* src = (which ? delta : lse) + ((size_t)b * H + h) * S;
-      const bool ok = m0 + i < S;
-      const uint32_t dst = smem_addr(rowstat + (2 * stage + which) * TC_ROWS + i);
-      cp_async4(dst, ok ? src + m0 + i : src, ok);
-    }
+    const int i = threadIdx.x % TC_ROWS, which = threadIdx.x / TC_ROWS;  // L, then D
+    const float* src = (which ? delta : lse) + ((size_t)b * H + h) * S;
+    const bool ok = m0 + i < S;
+    cp_async4(smem_addr(rowstat + (2 * stage + which) * TC_ROWS + i), ok ? src + m0 + i : src, ok);
   };
 
   tc_load_tile<HD>(ks, k, b, n0, S, KH, kh);
   tc_load_tile<HD>(vs, v, b, n0, S, KH, kh);
   load_queries(0, 0);
   cp_async_commit();
+  if (n_iter > 1) load_queries(1, 1);
+  cp_async_commit();
 
-  const LaneReads<W> a_reads(r8, mat & 1, mat >> 1), b_reads(r8, mat >> 1, mat & 1);
-  const uint32_t kw = ks + 16 * warp * W * 16, vw = vs + 16 * warp * W * 16;
+  // The queries [lo, hi) that each of the thread's two keys sees.
+  int lo[2], hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = wk0 + g + 8 * i;
+    lo[i] = causal ? key : 0;
+    hi[i] = key >= S ? 0 : window > 0 ? (int)min((long long)S, (long long)key + window) : S;
+  }
+
   float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
 #pragma unroll
   for (int d = 0; d < HD / 8; ++d)
@@ -570,135 +620,225 @@ flash_attn_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) dk_acc[d][e] = dv_acc[d][e] = 0.f;
 
   for (int it = 0; it < n_iter; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_iter) {
-      load_queries(it + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();  // tile it has arrived; tile it + 1 is in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int stage = it % WG_STAGES;
+    cp_async_wait<1>();  // tile it has arrived; tile it + 1 may be in flight
+    fence_async_smem();
+    __syncthreads();     // ... for every thread; every warp is done with tile it - 1
+    if (it + 2 < n_iter) load_queries(it + 2, (it + 2) % WG_STAGES);
+    cp_async_commit();
 
     const int m0 = m_begin + (it % per_head) * TC_ROWS;
-    // Skip a tile none of whose queries sees a key of the warp (warp-uniform).
-    const bool unseen = wk0 >= S || (causal && m0 + TC_ROWS - 1 < wk0) ||
-                        (window > 0 && m0 - (wk0 + 15) >= window);
-    if (!unseen) {
-      const uint32_t qst = qs + stage * TILE, gst = gs + stage * TILE;
-      const float* Ls = rowstat + 2 * stage * TC_ROWS;
-      const float* Ds = Ls + TC_ROWS;
-      float p[NT][4], ds[NT][4];
-      tc_rows_by_rows<HD>(p, kw, qst, a_reads, b_reads);   // S^T = K Q^T
-      tc_rows_by_rows<HD>(ds, vw, gst, a_reads, b_reads);  // dP^T = V dO^T
-      const bool edge = wk0 + 16 > S || m0 + TC_ROWS > S || (causal && m0 < wk0 + 15) ||
-                        (window > 0 && m0 + TC_ROWS - 1 - wk0 >= window);
+    const uint32_t qst = qs + stage * TILE, gst = gs + stage * TILE;
+    float p[NT][4], ds[NT][4];
+    wgmma_fence();
+    wg_rows_by_rows<HD>(p, ks, qst);  // S^T = K Q^T
+    wgmma_commit();
+    wg_rows_by_rows<HD>(ds, vs, gst);  // dP^T = V dO^T
+    wgmma_commit();
+    const bool edge = n0 + TC_ROWS > S || m0 + TC_ROWS > S ||
+                      (causal && m0 < n0 + TC_ROWS - 1) ||
+                      (window > 0 && m0 + TC_ROWS - 1 - n0 >= window);
+    // L and D of the thread's 16 queries: 2 t and 2 t + 1 of each 8
+    const float* Ls = rowstat + 2 * stage * TC_ROWS;
+    const float* Ds = Ls + TC_ROWS;
+    wgmma_wait<1>();  // S^T
+    wgmma_hold(p);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 l = *reinterpret_cast<const float2*>(Ls + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[n][e] = fast_exp2(fmaf(p[n][e], scale_log2, -(e & 1 ? l.y : l.x) * LOG2E));
+    }
+    if (edge) {
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = 8 * n + 2 * t + (e & 1);  // the query, in the tile
-          float pe = fast_exp2(fmaf(p[n][e], scale_log2, -Ls[col] * LOG2E));
-          if (edge && !key_visible(m0 + col, wk0 + g + 8 * (e >> 1), S, causal, window)) pe = 0.f;
-          p[n][e] = pe;
-          ds[n][e] = pe * (ds[n][e] - Ds[col]);
+          const int query = m0 + 8 * n + 2 * t + (e & 1), i = e >> 1;
+          if (query < lo[i] || query >= hi[i]) p[n][e] = 0.f;
         }
-      tc_acc_times_tile<HD>(dv_acc, p, gst, a_reads);   // dV += P^T dO
-      tc_acc_times_tile<HD>(dk_acc, ds, qst, a_reads);  // dK += dS^T Q
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    wgmma_wait<0>();  // dP^T
+    wgmma_hold(ds);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 d = *reinterpret_cast<const float2*>(Ds + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - (e & 1 ? d.y : d.x));
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    wg_acc_to_a(pa, p);
+    wg_acc_to_a(dsa, ds);
+    wgmma_fence();  // the A fragments are written
+    wg_acc_times_tile<HD>(dv_acc, pa, gst);   // dV += P^T dO
+    wg_acc_times_tile<HD>(dk_acc, dsa, qst);  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();  // before the stage is refilled
+    wgmma_hold(dv_acc);
+    wgmma_hold(dk_acc);
   }
+  cp_async_wait<0>();
   tc_store_rows<HD>(dk, dk_acc, scale, b, wk0, S, KH, kh);
   tc_store_rows<HD>(dv, dv_acc, 1.f, b, wk0, S, KH, kh);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(TC_THREADS, 2)
-flash_attn_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+__global__ void __launch_bounds__(TC_THREADS, 3)
+flash_attn_bwd_dq_wg_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             const __nv_bfloat16* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             __nv_bfloat16* __restrict__ dq, int S, int H, int KH, float scale,
                             int causal, int window) {
-  constexpr int W = HD / 8, NT = TC_ROWS / 8, TILE = tc_tile_bytes<HD>();
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  const uint32_t qs = smem_addr(tc_smem), gs = qs + TILE;
-  const uint32_t ks = gs + TILE;  // two stages of K, then two of V
-  const uint32_t vs = ks + 2 * TILE;
+  constexpr int NT = TC_ROWS / 8, TILE = tc_tile_bytes<HD>();
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t raw = smem_addr(wg_smem), base = (raw + 1023) & ~1023u;
+  const uint32_t qs = base, gs = qs + TILE;
+  const uint32_t ks = gs + TILE;  // WG_STAGES tiles of K, then of V
+  const uint32_t vs = ks + WG_STAGES * TILE;
 
   const int b = blockIdx.x / H, h = blockIdx.x % H, kh = h / (H / KH);
   const int m0 = (gridDim.y - 1 - blockIdx.y) * TC_ROWS;  // longest causal tiles first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, mat = lane / 8, r8 = lane % 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int wq0 = m0 + 16 * warp;  // the warp's first query
   const float scale_log2 = scale * LOG2E;
 
-  // The keys any row of this tile can see: at least one tile, since m0 < S.
+  // The keys any row of the block can see: at least one tile, since m0 < S.
   int k_begin = 0, k_end = S;
   if (causal) k_end = min(S, m0 + TC_ROWS);
   if (window > 0) k_begin = max(0, m0 - window + 1) / TC_ROWS * TC_ROWS;
   const int n_tiles = (k_end - k_begin + TC_ROWS - 1) / TC_ROWS;
 
+  auto load_keys = [&](int j, int stage) {
+    tc_load_tile<HD>(ks + stage * TILE, k, b, k_begin + j * TC_ROWS, S, KH, kh);
+    tc_load_tile<HD>(vs + stage * TILE, v, b, k_begin + j * TC_ROWS, S, KH, kh);
+  };
   tc_load_tile<HD>(qs, q, b, m0, S, H, h);
   tc_load_tile<HD>(gs, dout, b, m0, S, H, h);
-  tc_load_tile<HD>(ks, k, b, k_begin, S, KH, kh);
-  tc_load_tile<HD>(vs, v, b, k_begin, S, KH, kh);
+  load_keys(0, 0);
+  cp_async_commit();
+  if (n_tiles > 1) load_keys(1, 1);
   cp_async_commit();
 
-  // L (in base 2) and D of the thread's two rows, wq0 + g and wq0 + g + 8
+  // L (in base 2) and D of the thread's two rows, wq0 + g and wq0 + g + 8,
+  // and the keys [lo, hi) that each sees
   float lrow[2], drow[2];
+  int lo[2], hi[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int pos = wq0 + g + 8 * i;
     const size_t off = ((size_t)b * H + h) * S + pos;
     lrow[i] = pos < S ? lse[off] * LOG2E : 0.f;
     drow[i] = pos < S ? delta[off] : 0.f;
+    lo[i] = window > 0 ? max(0, pos - window + 1) : 0;
+    hi[i] = pos >= S ? 0 : causal ? min(S, pos + 1) : S;
   }
 
-  const LaneReads<W> a_reads(r8, mat & 1, mat >> 1), b_reads(r8, mat >> 1, mat & 1);
-  const uint32_t qw = qs + 16 * warp * W * 16, gw = gs + 16 * warp * W * 16;
   float dq_acc[HD / 8][4];
 #pragma unroll
   for (int d = 0; d < HD / 8; ++d) dq_acc[d][0] = dq_acc[d][1] = dq_acc[d][2] = dq_acc[d][3] = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
     const int n0 = k_begin + j * TC_ROWS;
-    const int stage = j & 1;
-    if (j + 1 < n_tiles) {
-      tc_load_tile<HD>(ks + (stage ^ 1) * TILE, k, b, n0 + TC_ROWS, S, KH, kh);
-      tc_load_tile<HD>(vs + (stage ^ 1) * TILE, v, b, n0 + TC_ROWS, S, KH, kh);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int stage = j % WG_STAGES;
+    cp_async_wait<1>();
+    fence_async_smem();
     __syncthreads();
+    if (j + 2 < n_tiles) load_keys(j + 2, (j + 2) % WG_STAGES);
+    cp_async_commit();
 
-    const bool unseen = wq0 >= S || (causal && n0 > wq0 + 15) ||
-                        (window > 0 && n0 + TC_ROWS - 1 <= wq0 - window);
-    if (!unseen) {
-      const uint32_t kst = ks + stage * TILE, vst = vs + stage * TILE;
-      float p[NT][4], ds[NT][4];
-      tc_rows_by_rows<HD>(p, qw, kst, a_reads, b_reads);   // S = Q K^T
-      tc_rows_by_rows<HD>(ds, gw, vst, a_reads, b_reads);  // dP = dO V^T
-      const bool edge = n0 + TC_ROWS > S || wq0 + 16 > S || (causal && n0 + TC_ROWS - 1 > wq0) ||
-                        (window > 0 && wq0 + 15 - n0 >= window);
+    const uint32_t kst = ks + stage * TILE, vst = vs + stage * TILE;
+    float p[NT][4], ds[NT][4];
+    wgmma_fence();
+    wg_rows_by_rows<HD>(p, qs, kst);  // S = Q K^T
+    wgmma_commit();
+    wg_rows_by_rows<HD>(ds, gs, vst);  // dP = dO V^T
+    wgmma_commit();
+    const bool edge = n0 + TC_ROWS > S || m0 + TC_ROWS > S ||
+                      (causal && n0 + TC_ROWS - 1 > m0) ||
+                      (window > 0 && m0 + TC_ROWS - 1 - n0 >= window);
+    wgmma_wait<1>();
+    wgmma_hold(p);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[n][e] = fast_exp2(fmaf(p[n][e], scale_log2, -lrow[e >> 1]));
+    if (edge) {
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          float pe = fast_exp2(fmaf(p[n][e], scale_log2, -lrow[i]));
-          const int key = n0 + 8 * n + 2 * t + (e & 1);
-          if (edge && !key_visible(wq0 + g + 8 * i, key, S, causal, window)) pe = 0.f;
-          ds[n][e] = pe * (ds[n][e] - drow[i]);
+          const int key = n0 + 8 * n + 2 * t + (e & 1), i = e >> 1;
+          if (key < lo[i] || key >= hi[i]) p[n][e] = 0.f;
         }
-      tc_acc_times_tile<HD>(dq_acc, ds, kst, a_reads);  // dQ += dS K
     }
-    __syncthreads();
+    wgmma_wait<0>();
+    wgmma_hold(ds);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - drow[e >> 1]);
+    uint32_t dsa[4][4];
+    wg_acc_to_a(dsa, ds);
+    wgmma_fence();
+    wg_acc_times_tile<HD>(dq_acc, dsa, kst);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(dq_acc);
   }
+  cp_async_wait<0>();
   tc_store_rows<HD>(dq, dq_acc, scale, b, wq0, S, H, h);
+}
+
+// One warpgroup product as the kernels above issue them, for the tests of
+// the descriptors and operand layouts: which 0, d (64 x 64 f32) = x y^T
+// with x and y (64, HD) bf16 (wg_rows_by_rows: both K-major); which 1,
+// d (64 x HD) = x y with x (64, 64) taken as A fragments in registers and
+// y (64, HD) read MN-major (wg_acc_times_tile).
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_attn_bwd_wgmma_probe_kernel(const __nv_bfloat16* __restrict__ x,
+                                  const __nv_bfloat16* __restrict__ y, float* __restrict__ d,
+                                  int which) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t raw = smem_addr(wg_smem), xs = (raw + 1023) & ~1023u;
+  const uint32_t ys = xs + tc_tile_bytes<HD>();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  if (which == 0) tc_load_tile<HD>(xs, x, 0, 0, TC_ROWS, 1, 0);
+  tc_load_tile<HD>(ys, y, 0, 0, TC_ROWS, 1, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_async_smem();
+  __syncthreads();
+  if (which == 0) {
+    float s[TC_ROWS / 8][4];
+    wgmma_fence();
+    wg_rows_by_rows<HD>(s, xs, ys);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(s);
+    tc_store_rows<TC_ROWS>(d, s, 1.f, 0, 16 * warp, TC_ROWS, 1, 0);
+  } else {
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = 16 * warp + g + 8 * (r & 1), col = 16 * kk + 2 * t + 8 * (r >> 1);
+        a[kk][r] = *reinterpret_cast<const uint32_t*>(x + row * TC_ROWS + col);
+      }
+    float o[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    wgmma_fence();
+    wg_acc_times_tile<HD>(o, a, ys);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(o);
+    tc_store_rows<HD>(d, o, 1.f, 0, 16 * warp, TC_ROWS, 1, 0);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -749,12 +889,8 @@ __device__ __forceinline__ void wide_put_scores(uint32_t tile, const float (&x)[
 #pragma unroll
   for (int n = 0; n < 4; ++n) {
     const int chunk = 4 * hf + n;
-    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(tile + swizzle<8>(16 * rg + g, chunk) + 4 * t),
-                 "r"(pack_bf16(x[n][0], x[n][1]))
-                 : "memory");
-    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(tile + swizzle<8>(16 * rg + g + 8, chunk) + 4 * t),
-                 "r"(pack_bf16(x[n][2], x[n][3]))
-                 : "memory");
+    st_shared_b32(tile + swizzle<8>(16 * rg + g, chunk) + 4 * t, pack_bf16(x[n][0], x[n][1]));
+    st_shared_b32(tile + swizzle<8>(16 * rg + g + 8, chunk) + 4 * t, pack_bf16(x[n][2], x[n][3]));
   }
 }
 
@@ -1032,12 +1168,12 @@ int dkdv_t(const void* q, const void* k, const void* v, const void* dout, const 
     return (int)cudaGetLastError();
   } else if constexpr (use_tc<T, HD>()) {
     if (splits != 1) return (int)cudaErrorInvalidValue;  // only the wide kernel splits
-    auto kernel = flash_attn_bwd_dkdv_tc_kernel<HD>;
+    auto kernel = flash_attn_bwd_dkdv_wg_kernel<HD>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           tc_dkdv_smem_bytes<HD>());
+                                           wg_dkdv_smem_bytes<HD>());
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(B * KH, (S + TC_ROWS - 1) / TC_ROWS);
-    kernel<<<grid, TC_THREADS, tc_dkdv_smem_bytes<HD>(), st>>>(
+    kernel<<<grid, TC_THREADS, wg_dkdv_smem_bytes<HD>(), st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1077,12 +1213,12 @@ int dq_t(const void* q, const void* k, const void* v, const void* dout, const vo
         static_cast<__nv_bfloat16*>(dq), S, H, KH, scale, causal, window);
     return (int)cudaGetLastError();
   } else if constexpr (use_tc<T, HD>()) {
-    auto kernel = flash_attn_bwd_dq_tc_kernel<HD>;
+    auto kernel = flash_attn_bwd_dq_wg_kernel<HD>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           tc_dq_smem_bytes<HD>());
+                                           wg_dq_smem_bytes<HD>());
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(B * H, (S + TC_ROWS - 1) / TC_ROWS);
-    kernel<<<grid, TC_THREADS, tc_dq_smem_bytes<HD>(), st>>>(
+    kernel<<<grid, TC_THREADS, wg_dq_smem_bytes<HD>(), st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1114,8 +1250,8 @@ int attributes_t(int which, int* regs, int* local_bytes, int* smem_bytes) {
       err = cudaFuncGetAttributes(&attr, flash_attn_bwd_dkdv_wide_kernel<HD>);
       dynamic = wide_dkdv_smem_bytes<HD>();
     } else if constexpr (use_tc<T, HD>()) {
-      err = cudaFuncGetAttributes(&attr, flash_attn_bwd_dkdv_tc_kernel<HD>);
-      dynamic = tc_dkdv_smem_bytes<HD>();
+      err = cudaFuncGetAttributes(&attr, flash_attn_bwd_dkdv_wg_kernel<HD>);
+      dynamic = wg_dkdv_smem_bytes<HD>();
     } else {
       err = cudaFuncGetAttributes(&attr, flash_attn_bwd_dkdv_kernel<HD, T>);
       dynamic = dkdv_smem_bytes<HD>();
@@ -1125,8 +1261,8 @@ int attributes_t(int which, int* regs, int* local_bytes, int* smem_bytes) {
       err = cudaFuncGetAttributes(&attr, flash_attn_bwd_dq_wide_kernel<HD>);
       dynamic = wide_dq_smem_bytes<HD>();
     } else if constexpr (use_tc<T, HD>()) {
-      err = cudaFuncGetAttributes(&attr, flash_attn_bwd_dq_tc_kernel<HD>);
-      dynamic = tc_dq_smem_bytes<HD>();
+      err = cudaFuncGetAttributes(&attr, flash_attn_bwd_dq_wg_kernel<HD>);
+      dynamic = wg_dq_smem_bytes<HD>();
     } else {
       err = cudaFuncGetAttributes(&attr, flash_attn_bwd_dq_kernel<HD, T>);
       dynamic = dq_smem_bytes<HD>();
@@ -1205,4 +1341,26 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, co
 extern "C" int flash_attn_bwd_attributes(int which, int hd, int dtype, int* regs,
                                          int* local_bytes, int* smem_bytes) {
   DISPATCH(hd, dtype, (attributes_t<HD, T>(which, regs, local_bytes, smem_bytes)));
+}
+
+// One warpgroup product of flash_attn_bwd_wgmma_probe_kernel<hd> (hd 16 or
+// 64; which 0 or 1, as described there) on x, y (bf16) into d (f32), for
+// the tests; returns a CUDA error code (0 on success).
+extern "C" int flash_attn_bwd_wgmma_probe(const void* x, const void* y, void* d, int hd,
+                                          int which, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (which != 0 && which != 1) return (int)cudaErrorInvalidValue;
+  const int smem = 1024 + 2 * TC_ROWS * TC_ROWS * 2;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* yb = static_cast<const __nv_bfloat16*>(y);
+  if (hd == 16) {
+    flash_attn_bwd_wgmma_probe_kernel<16><<<1, TC_THREADS, smem, st>>>(
+        xb, yb, static_cast<float*>(d), which);
+  } else if (hd == 64) {
+    flash_attn_bwd_wgmma_probe_kernel<64><<<1, TC_THREADS, smem, st>>>(
+        xb, yb, static_cast<float*>(d), which);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }

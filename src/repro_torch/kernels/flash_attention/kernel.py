@@ -5,8 +5,9 @@
 inputs the CUDA-core kernel; with ``return_lse`` it also returns each row's
 log-sum-exp for the backward.  ``flash_attention_bwd`` launches the three
 kernels of ``csrc/flash_attn_bwd.cu`` (D, then dK/dV, then dQ; bf16 at
-``TC_BWD_HEAD_DIMS`` on the tensor cores, the rest on the CUDA cores), which
-have no TPU counterpart: they are the gradient of the forward.  At
+``TC_BWD_HEAD_DIMS`` on the tensor cores: at ``WG_BWD_HEAD_DIMS`` the
+warpgroup (wgmma) kernels, the rest on the CUDA cores), which have no TPU
+counterpart: they are the gradient of the forward.  At
 ``WIDE_BWD_HEAD_DIMS`` the dK/dV kernel cuts each key tile's walk over the
 query tiles into ``bwd_splits`` parts, one block each, and the wrapper sums
 their f32 partials in PyTorch.
@@ -33,9 +34,12 @@ from .ref import attention_bwd_ref, attention_ref, lse_ref
 NAME = "flash_attn_fwd"
 BWD_SOURCE = "flash_attn_bwd"
 # head_dims at which bf16 runs the backward's tensor-core kernels; the rest,
-# and f32, run its CUDA-core kernels.  At WIDE_BWD_HEAD_DIMS they are the
-# eight-warp kernels whose dK/dV kernel splits the query walk.
+# and f32, run its CUDA-core kernels.  At WG_BWD_HEAD_DIMS they are the
+# warpgroup kernels (flash_attn_bwd_{dkdv,dq}_wg_kernel: wgmma, a warpgroup
+# of 64 keys or queries a block), at WIDE_BWD_HEAD_DIMS the eight-warp
+# mma.sync kernels whose dK/dV kernel splits the query walk.
 TC_BWD_HEAD_DIMS = (16, 64, 256)
+WG_BWD_HEAD_DIMS = (16, 64)
 WIDE_BWD_HEAD_DIMS = (256,)
 # The most parts bwd_splits cuts a key tile's query walk into: at
 # recurrentgemma-2b's batch 1 (32 key tiles) dK/dV took 1.42-1.44 ms unsplit,

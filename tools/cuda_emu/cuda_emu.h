@@ -1,5 +1,6 @@
 // CPU emulation of the small part of CUDA that the port's kernels use
-// (rglru_scan.cu, ssd_bwd.cu, ssd_bwd_tc.cu, pack_fill.cu), so that their C++
+// (rglru_scan.cu, ssd_bwd.cu, ssd_bwd_tc.cu, pack_fill.cu, flash_attn_bwd.cu),
+// so that their C++
 // can be run and held against the plain versions where there is no card and
 // no nvcc: one fiber (ucontext) per CUDA thread, all of a block's fibers on
 // the calling thread, switched at __syncthreads, at __syncwarp and in the 32-
@@ -13,11 +14,18 @@
 // through the warp's barrier as the shuffles do; __popc and __ffs are g++'s.  Dynamic
 // shared memory is poisoned with NaN bits before each block.  Inline PTX does
 // not build.  A source that wraps its PTX in functions may leave them to this
-// header where CUDA_EMU_TENSOR_CORES is defined (ssd_bwd_tc.cu): cp.async
+// header where CUDA_EMU_TENSOR_CORES is defined (ssd_bwd_tc.cu,
+// flash_attn_bwd.cu): cp.async
 // (held back per thread until its group is waited for, so a read before the
 // wait sees the poison), ldmatrix.x4 (.trans) and mma.sync m16n8k16 bf16 ->
 // f32 (exact products, summed in double, one rounding per output), each
-// warp-collective through the warp's barrier.
+// warp-collective through the warp's barrier; ex2 (exp2f) and st.shared;
+// and the warpgroup product wgmma.mma_async m64nNk16 bf16 -> f32 with A from
+// registers or a descriptor and B from a descriptor (128- and 32-byte
+// swizzles, K-major and MN-major), which is recorded at issue and applied at
+// the wgmma.wait_group that retires its group, after the warpgroup's
+// barrier: an accumulator read before that wait holds its old values, and
+// the shared memory read is what it holds at the wait.
 // tools/cuda_emu/build.py turns a .cu file into a shared library against it.
 #pragma once
 #include <ucontext.h>
@@ -31,6 +39,7 @@
 #include <vector>
 #include <memory>
 #include <climits>
+#include <array>
 
 #define __global__
 #define __device__
@@ -56,6 +65,7 @@ inline int cudaGetLastError() { return 0; }
 
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
+struct uint2 { unsigned x, y; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 
@@ -80,6 +90,22 @@ inline unsigned char emu_dyn_smem[256 * 1024] __attribute__((aligned(16)));
 
 struct EmuCopy { uint32_t dst; const void* src; int size, src_size; };
 
+// One wgmma.mma_async of a warpgroup: the operands every thread gave at
+// issue (its accumulator's address and, for a register A, its four A
+// registers) and the descriptors, the same in every thread.
+struct EmuWgmma {
+  int n = 0, trans_b = 0, scale_d = 0;
+  bool a_regs = false, applied = false;
+  uint64_t da = 0, db = 0;
+  std::vector<float*> d;                      // by thread of the warpgroup
+  std::vector<std::array<uint32_t, 4>> a;     // by thread, register A only
+};
+struct EmuWarpgroup {
+  int arrived = 0;
+  unsigned gen = 0;
+  std::vector<EmuWgmma> ops;  // in issue order
+};
+
 struct EmuFiber {
   ucontext_t ctx;
   std::unique_ptr<char[]> stack;
@@ -99,6 +125,9 @@ struct EmuBlock {
   std::vector<uint32_t> tc;   // per thread, one mma.sync's six operand registers
   std::vector<std::vector<EmuCopy>> open_copies;                 // per thread
   std::vector<std::vector<std::vector<EmuCopy>>> copy_groups;    // per thread
+  std::vector<EmuWarpgroup> wg;            // per warpgroup (128 threads)
+  std::vector<int> wg_issued;              // per thread: its wgmma ops so far
+  std::vector<std::vector<int>> wg_groups; // per thread: op count at each commit
   std::function<void()> body;
 };
 inline EmuBlock* emu_block;
@@ -213,6 +242,9 @@ inline void emu_launch(K kernel, dim3 grid, dim3 block, size_t, cudaStream_t, Ar
         eb.tc.assign(6 * nt, 0);
         eb.open_copies.resize(nt);
         eb.copy_groups.resize(nt);
+        eb.wg.resize((nt + 127) / 128);
+        eb.wg_issued.assign(nt, 0);
+        eb.wg_groups.resize(nt);
         eb.body = [&] { kernel(args...); };
         emu_block = &eb;
         std::memset(emu_dyn_smem, 0xff, sizeof(emu_dyn_smem));  // poison
@@ -251,6 +283,9 @@ inline void emu_launch(K kernel, dim3 grid, dim3 block, size_t, cudaStream_t, Ar
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16(a), __float2bfloat16(b)};
+}
+inline float2 __bfloat1622float2(__nv_bfloat162 v) {
+  return {__bfloat162float(v.x), __bfloat162float(v.y)};
 }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
@@ -327,4 +362,123 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
     d[e] = (float)((double)d[e] + s);
   }
   __syncwarp();
+}
+
+inline float fast_exp2(float x) { return exp2f(x); }
+inline void st_shared_b32(uint32_t addr, uint32_t v) { std::memcpy(emu_dyn_smem + addr, &v, 4); }
+
+// ---------------------------------------------------------------------------
+// wgmma.  A descriptor (PTX's matrix descriptor): bits 0-13 the start
+// address / 16, 16-29 the leading byte offset / 16, 32-45 the stride byte
+// offset / 16, 62-63 the swizzle (1: 128 bytes, 3: 32; 0, none, and 2, 64
+// bytes, are not emulated).  With a swizzle of Wb bytes, rows of Wb bytes, the address
+// of bf16 element (mn, k) of the operand is
+//   K-major:  start + (mn / 8) SBO + (mn % 8) Wb + 2 k            (k < 16)
+//   MN-major: start + (mn / (Wb / 2)) LBO + (k / 8) SBO + (k % 8) Wb
+//             + 2 (mn % (Wb / 2))
+// and the swizzle XORs address bits 4.. (log2(Wb / 16) of them) with bits
+// 7..: the layouts of CUTLASS's canonical GMMA atoms.
+inline uint32_t emu_wgmma_addr(uint64_t desc, bool mn_major, int mn, int k) {
+  const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4;
+  const uint32_t lbo = (uint32_t)((desc >> 16) & 0x3FFF) << 4;
+  const uint32_t sbo = (uint32_t)((desc >> 32) & 0x3FFF) << 4;
+  const int layout = (int)(desc >> 62);
+  if (layout != 1 && layout != 3) { fprintf(stderr, "emu: only the 128- and 32-byte swizzles are emulated\n"); abort(); }
+  const uint32_t wb = layout == 1 ? 128 : 32;
+  uint32_t addr;
+  if (!mn_major) {
+    addr = start + (mn / 8) * sbo + (mn % 8) * wb + 2 * k;
+  } else {
+    const uint32_t per = wb / 2;
+    addr = start + (mn / per) * lbo + (k / 8) * sbo + (k % 8) * wb + 2 * (mn % per);
+  }
+  const uint32_t bits = wb == 128 ? 7 : 1;
+  return addr ^ (((addr >> 7) & bits) << 4);
+}
+inline float emu_smem_bf16(uint32_t addr) {
+  uint16_t h;
+  std::memcpy(&h, emu_dyn_smem + addr, 2);
+  return __uint_as_float((uint32_t)h << 16);
+}
+
+inline EmuWgmma& emu_wgmma_issue(int n, int trans_b, bool a_regs, uint64_t da, uint64_t db,
+                                 int scale_d, float* d) {
+  if (emu_block->nt % 128) { fprintf(stderr, "emu: wgmma in a block of %d threads\n", emu_block->nt); abort(); }
+  EmuWarpgroup& wg = emu_block->wg[emu_tid / 128];
+  const int idx = emu_block->wg_issued[emu_tid]++;
+  if ((int)wg.ops.size() <= idx) {
+    wg.ops.emplace_back();
+    EmuWgmma& op = wg.ops.back();
+    op.n = n; op.trans_b = trans_b; op.a_regs = a_regs; op.da = da; op.db = db;
+    op.scale_d = scale_d;
+    op.d.assign(128, nullptr);
+    op.a.resize(128);
+  }
+  EmuWgmma& op = wg.ops[idx];
+  if (op.n != n || op.trans_b != trans_b || op.a_regs != a_regs || op.da != da || op.db != db ||
+      op.scale_d != scale_d) {
+    fprintf(stderr, "emu: the threads of a warpgroup issued different wgmma operands\n");
+    abort();
+  }
+  op.d[emu_tid % 128] = d;
+  return op;
+}
+
+// d (64 x n) = (scale_d ? d : 0) + A B over k = 16: the exact products,
+// summed in double, one rounding per output (as mma_bf16 above).
+inline void emu_wgmma_apply(EmuWgmma& op) {
+  float a[64][16], b[16][256];
+  for (int r = 0; r < 64; ++r)
+    for (int k = 0; k < 16; ++k) {
+      if (op.a_regs) {  // thread 32 (r / 16) + 4 (r % 8) + (k % 8) / 2 holds it
+        const int t = 32 * (r / 16) + 4 * (r % 8) + (k % 8) / 2;
+        const uint32_t u = op.a[t][(r % 16) / 8 + 2 * (k / 8)];
+        a[r][k] = __uint_as_float(k % 2 ? (u & 0xffff0000u) : (u << 16));
+      } else {
+        a[r][k] = emu_smem_bf16(emu_wgmma_addr(op.da, false, r, k));
+      }
+    }
+  for (int k = 0; k < 16; ++k)
+    for (int c = 0; c < op.n; ++c) b[k][c] = emu_smem_bf16(emu_wgmma_addr(op.db, op.trans_b, c, k));
+  for (int t = 0; t < 128; ++t) {
+    float* d = op.d[t];
+    if (!d) { fprintf(stderr, "emu: a thread of the warpgroup did not issue a wgmma\n"); abort(); }
+    const int w = t / 32, g = (t % 32) / 4, tq = t % 4;
+    for (int j = 0; j < op.n / 8; ++j)
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * w + g + 8 * (e / 2), c = 8 * j + 2 * tq + (e % 2);
+        double s = 0.0;
+        for (int k = 0; k < 16; ++k) s += (double)a[r][k] * (double)b[k][c];
+        float& out = d[4 * j + e];
+        out = (float)((op.scale_d ? (double)out : 0.0) + s);
+      }
+  }
+  op.applied = true;
+}
+
+inline void wgmma_fence() {}
+inline void fence_async_smem() {}
+template <int R> inline void wgmma_hold(float (&)[R][4]) {}
+inline void wgmma_commit() { emu_block->wg_groups[emu_tid].push_back(emu_block->wg_issued[emu_tid]); }
+// The warpgroup's barrier, then every op of the groups older than the N
+// newest is applied (once, by the first thread through), in issue order.
+template <int N> inline void wgmma_wait() {
+  EmuWarpgroup& wg = emu_block->wg[emu_tid / 128];
+  emu_wait(wg.arrived, wg.gen, 128);
+  const std::vector<int>& groups = emu_block->wg_groups[emu_tid];
+  if ((int)groups.size() <= N) return;
+  const int upto = groups[groups.size() - 1 - N];
+  for (int i = 0; i < upto; ++i)
+    if (!wg.ops[i].applied) emu_wgmma_apply(wg.ops[i]);
+}
+
+// flash_common.cuh's two forms: m64n64k16 with A and B K-major in shared
+// memory, and m64nNk16 with A in registers and B MN-major (d += A B).
+inline void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t db, int scale_d) {
+  emu_wgmma_issue(64, 0, false, da, db, scale_d != 0, &d[0][0]);
+}
+template <int N>
+inline void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4], uint64_t db) {
+  EmuWgmma& op = emu_wgmma_issue(N, 1, true, 0, db, 1, &d[0][0]);
+  for (int i = 0; i < 4; ++i) op.a[emu_tid % 128][i] = a[i];
 }
