@@ -8,8 +8,8 @@ Phases; any that fails ends the run with a non-zero exit:
      CUDA kernel from the checkout's sources (one nvcc per source, all
      started together), with nvcc's register, shared-memory and spill report;
      the run fails if a bf16 (tensor-core) flash or SSD instantiation, an
-     f32 flash instantiation, a flash backward, SSD backward or RG-LRU
-     backward instantiation spills;
+     f32 flash instantiation, a flash backward, SSD backward, RG-LRU scan or
+     RG-LRU backward instantiation spills;
   2. every kernel against its plain PyTorch version on the card:
      - flash_attn_fwd over the grid of ``tests/test_kernels.py`` plus a
        ragged length, a non-causal case, head_dim 256 (small, ragged and
@@ -32,10 +32,14 @@ Phases; any that fails ends the run with a non-zero exit:
        h_final 2e-4), over that grid, the serving shape with both A, chunk 8
        (P 16, N 16), G = 2 and 3, chunks that are not a multiple of 16 (24,
        5), with and without h0;
-     - rglru_scan against ``rglru_scan_ref`` over the grid of
-       ``tests/test_kernels.py``, a ragged length, h0 None and
-       recurrentgemma-2b's serving shape with the model's kind of decay, a
-       and u in f32 and in bf16, both outputs (f32 1e-5, bf16 h_seq 8e-3);
+     - rglru_scan (a chunked scan: a summary kernel and a scan kernel) over
+       the grid of ``tests/test_kernels.py``, a ragged length, h0 None, two
+       cases in chunks that do not divide S, and recurrentgemma-2b's serving
+       shape (one chunk) and training batch 1 (chunked) with the model's
+       kind of decay, a and u in f32 and in bf16, both outputs: against the
+       sequential ``rglru_scan_ref`` (f32 1e-5, bf16 h_seq 8e-3) and against
+       ``rglru_scan_chunked_ref`` with the same chunk (to the bit), with
+       each case's chunk count;
      - the flash backward's kernels (flash_attn_bwd_pre, _dkdv, _dq) against
        ``attention_bwd_ref`` over flash_attn_fwd's grid plus the training
        shapes (qwen3-0.6b's, recurrentgemma-2b's at batch 1 and 4,
@@ -49,9 +53,9 @@ Phases; any that fails ends the run with a non-zero exit:
        lengths with G 3 (WG_GRID); every bf16 case at head_dim 16 and 64 is
        launched twice, and the second launch's dq, dk and dv must equal the
        first's to the bit;
-     - rglru_scan_bwd against ``rglru_scan_bwd_ref`` over rglru_scan's grid
-       and recurrentgemma-2b's training shape, with and without dh_final,
-       f32 and bf16 (1e-5; bf16 da and du one bf16 step, 8e-3);
+     - rglru_scan_bwd over rglru_scan's cases, with and without dh_final,
+       f32 and bf16, against ``rglru_scan_bwd_ref`` (1e-5; bf16 da and du
+       one bf16 step, 8e-3) and ``rglru_scan_bwd_chunked_ref`` (the bit);
      - the SSD backward's kernels (ssd_bwd_dstate, ssd_bwd_state_pass,
        ssd_bwd_chunk: bf16 the tensor-core kernel of csrc/ssd_bwd_tc.cu,
        counted as ssd_bwd_chunk_tc, f32 ssd_bwd.cu's) each against its plain
@@ -93,8 +97,11 @@ Phases; any that fails ends the run with a non-zero exit:
      and C, the one PyTorch call that computes its product; the bf16
      ssd_bwd_chunk_tc beside the CUDA-core kernel it replaced on the same
      bf16 inputs, and that kernel on f32 inputs, its live path), and the
-     whole SSD backward (rglru_scan and its backward also at
-     recurrentgemma-2b's training batch 1); the packing pass at 10^3-10^6
+     whole SSD backward (rglru_scan, with ``return_state`` as training
+     calls it, and its backward also at recurrentgemma-2b's training batch
+     1, each with its chunk count, its CUDA launches a call as the library
+     counts them, and device_ms, the time with the card held while the host
+     queues the calls); the packing pass at 10^3-10^6
      tasks of each fleet in f32 and f64, the warp kernel against the block
      kernel on the same inputs, records equal (ms a pack, greedy adds, ns an
      add, ``full_reconfiguration`` wall ms and launches, the bound), its
@@ -337,10 +344,14 @@ SSD_BF16_GRID = SSD_GRID + [
     (1, 40, 2, 16, 1, 16, 5, True),
     (1, 512, 4, 64, 1, 128, 256, True),
 ]
-# rglru_scan against rglru_scan_ref: the kernel takes the oracle's f32
-# product and sum in the same order with the same rounding (no FMA), so the
-# f32 outputs should agree exactly; 1e-5 abs + rel.  h_seq from bf16 inputs
-# is rounded to bf16 once on both sides: one bf16 step, TOL["bfloat16"].
+# rglru_scan against rglru_scan_ref: the chunked kernels take the oracle's
+# f32 products and sums, rounded one by one (no FMA), in its order within a
+# chunk, but start each chunk from a composition of the chunks before it,
+# which orders the f32 operations otherwise: a few ulps where chunks meet,
+# which the decay damps, so the f32 outputs agree within 1e-5 abs + rel and
+# not always to the bit (to the bit with one chunk, and always with the
+# chunked mirror rglru_scan_chunked_ref).  h_seq from bf16 inputs is rounded
+# to bf16 once on both sides: one bf16 step, TOL["bfloat16"].
 RGLRU_TOL = 1e-5
 # (B, S, R, h0, model a): tests/test_kernels.py's grid, a ragged S and R,
 # h0 None, then recurrentgemma-2b's serving shape with the model's decay
@@ -354,6 +365,13 @@ RGLRU_GRID = [
 ]
 RGLRU_SERVE = (4, 2048, 2560, False, True)  # recurrentgemma-2b prefill scan
 RGLRU_TRAIN_B1 = (1, 2048, 2560, False, True)  # its training cell's batch 1
+# Cases in chunks, (shape, chunk; None: the wrapper's chunk_length): S 37 in
+# 16-step chunks, and S 4100 in the wrapper's 64-step chunks (65 chunks, a
+# composition of up to 64 summaries), each with h0.
+RGLRU_CHUNKED = [((2, 37, 70, True, False), 16), ((1, 4100, 640, True, True), None)]
+# every phase-2 case, (shape, chunk): the serving and training shapes last
+RGLRU_CASES = ([(shape, None) for shape in RGLRU_GRID] + RGLRU_CHUNKED
+               + [(RGLRU_SERVE, None), (RGLRU_TRAIN_B1, None)])
 # The flash backward (flash_attn_bwd_pre, _dkdv, _dq) against
 # attention_bwd_ref from the same q, k, v, o, L and dO, abs + rel:
 # - f32: 1e-4 on dq, dk and dv: both sides compute in f32 from the same
@@ -441,9 +459,10 @@ SPLIT_GRID = [
     (RG_TRAIN_SHAPE, 8),
 ]
 # rglru_scan_bwd against rglru_scan_bwd_ref: the same rounded sum and product
-# in the same order, so f32 agrees exactly (1e-5 abs + rel, RGLRU_TOL); bf16
-# da and du are rounded to bf16 once on both sides, one step (8e-3); dh0 is
-# f32.  The SSD backward's kernels against their plain versions from the
+# in the same order within a chunk, the carry composed across chunks, so f32
+# agrees within 1e-5 abs + rel (RGLRU_TOL, as the forward; to the bit with
+# rglru_scan_bwd_chunked_ref); bf16 da and du are rounded to bf16 once on both
+# sides, one step (8e-3); dh0 is f32.  The SSD backward's kernels against their plain versions from the
 # same inputs: both sides compute in f32 and differ in the order of sums; dS,
 # the chunk-end term, dx, ddt, dA, dB, dC and dD each sum over up to a
 # chunk's rows (dA and dD over the whole sequence, dB and dC also over the
@@ -572,7 +591,9 @@ def spill_gate(logs: dict) -> None:
     flash backward's three kernels, one per head_dim and type (bf16 at
     head_dim 16 and 64: the warpgroup kernels; at 256 the eight-warp
     kernels), of the SSD backward's three, one
-    per (P, N) and type, and of the RG-LRU backward, one per type."""
+    per (P, N) and type, and of the RG-LRU scan's and backward's kernels:
+    each summary kernel one per type, each scan kernel one per type and
+    chunking (C = 1 or more)."""
     import re
     from repro_torch.kernels.flash_attention.kernel import (
         HEAD_DIMS, TC_BWD_HEAD_DIMS, WG_BWD_HEAD_DIMS, WIDE_BWD_HEAD_DIMS)
@@ -597,7 +618,10 @@ def spill_gate(logs: dict) -> None:
               ("ssd_bwd", "ssd_bwd_dstate_kernel", 2 * len(PN_PAIRS)),
               ("ssd_bwd", "ssd_bwd_chunk_kernel", 2 * len(PN_PAIRS)),
               ("ssd_bwd", "ssd_bwd_state_pass_kernel", 1),
-              ("rglru_scan", "rglru_scan_bwd_kernel", 2))
+              ("rglru_scan", "rglru_chunk_summary_kernel", 2),
+              ("rglru_scan", "rglru_chunk_scan_kernel", 4),
+              ("rglru_scan", "rglru_chunk_summary_bwd_kernel", 2),
+              ("rglru_scan", "rglru_chunk_scan_bwd_kernel", 4))
     for source, kernel, count in wanted:
         tc = [ln for ln in ptxas_summary(logs[source]) if kernel in ln]
         check(len(tc) == count, f"expected {count} {kernel} instantiations in "
@@ -930,12 +954,19 @@ def ssd_timing(device) -> dict:
     return out
 
 
-def time_ms(fn, iters: int, warmup: int = 3) -> float:
+def time_ms(fn, iters: int, warmup: int = 3, hold: bool = False) -> float:
+    """ms a call of ``fn`` by CUDA events over ``iters`` calls.  With
+    ``hold`` the card first sleeps (about 25 ms) while the host queues the
+    calls, so that a kernel that takes less time than its wrapper's host
+    code is timed, and not the host."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -1017,19 +1048,27 @@ def rglru_inputs(shape, dtype, device, seed):
 
 
 def rglru_kernel_vs_plain(device) -> float:
-    """Phase 2 for rglru_scan; returns the max abs error of both outputs at
-    the serving shape with f32 a and u, the main path's case."""
+    """Phase 2 for rglru_scan over RGLRU_CASES, against the sequential
+    ``rglru_scan_ref`` (RGLRU_TOL; bf16 h_seq TOL) and the chunked mirror
+    ``rglru_scan_chunked_ref`` with the same chunk (to the bit); returns the
+    max abs error against the oracle of both outputs at the serving and
+    training shapes with f32 a and u, the main paths' cases."""
     import torch
-    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
-    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
-    err = None
-    for i, shape in enumerate(RGLRU_GRID + [RGLRU_SERVE]):
+    from repro_torch.kernels.rglru_scan.kernel import (chunk_length, n_chunks,
+                                                       rglru_scan_fwd)
+    from repro_torch.kernels.rglru_scan.ref import (rglru_scan_chunked_ref,
+                                                    rglru_scan_ref)
+    err = 0.0
+    for i, (shape, given) in enumerate(RGLRU_CASES):
         for name in ("bfloat16", "float32"):
             a, u, h0 = rglru_inputs(shape, getattr(torch, name), device,
                                     seed=200 + i)
-            hs, h_final = rglru_scan_fwd(a, u, h0)
+            B, S, R = a.shape
+            chunk = given or chunk_length(B, S, R)
+            hs, h_final = rglru_scan_fwd(a, u, h0, chunk=given)
             torch.cuda.synchronize(device)
             hs_ref, final_ref = rglru_scan_ref(a, u, h0)
+            hs_mir, final_mir = rglru_scan_chunked_ref(a, u, h0, chunk)
             check(hs.dtype == u.dtype and hs.shape == u.shape
                   and h_final.dtype == torch.float32
                   and bool(torch.isfinite(hs).all())
@@ -1037,37 +1076,65 @@ def rglru_kernel_vs_plain(device) -> float:
             tol = TOL[name] if name == "bfloat16" else RGLRU_TOL
             e_seq, excess_seq = excess_error(hs, hs_ref, tol)
             e_fin, excess_fin = excess_error(h_final, final_ref, RGLRU_TOL)
-            print(f"[kernel] rglru_scan {name} (B,S,R,h0,model a)={shape}: "
-                  f"min a {a.min().item():.3e}, max|err| h_seq {e_seq:.3e} "
-                  f"(tol {tol:g} abs + rel), h_final {e_fin:.3e} "
-                  f"(tol {RGLRU_TOL:g})")
+            e_mir = max(excess_error(hs, hs_mir, 0)[0],
+                        excess_error(h_final, final_mir, 0)[0])
+            print(f"[kernel] rglru_scan {name} (B,S,R,h0,model a)={shape}, "
+                  f"{n_chunks(S, chunk)} chunks of {min(chunk, S)}: min a "
+                  f"{a.min().item():.3e}, max|err| against rglru_scan_ref "
+                  f"h_seq {e_seq:.3e} (tol {tol:g} abs + rel), h_final "
+                  f"{e_fin:.3e} (tol {RGLRU_TOL:g}); against "
+                  f"rglru_scan_chunked_ref {e_mir:.3e} (the bit)")
             check(excess_seq <= 0 and excess_fin <= 0,
                   f"rglru_scan disagrees with plain at {shape} {name}")
-            err = max(e_seq, e_fin)  # f32 last: the main path's case
+            check(torch.equal(hs, hs_mir) and torch.equal(h_final, final_mir),
+                  f"rglru_scan is not its chunked mirror at {shape} {name}")
+            if name == "float32" and shape in (RGLRU_SERVE, RGLRU_TRAIN_B1):
+                err = max(err, e_seq, e_fin)
     return err
 
 
-def rglru_timing(device, shape=RGLRU_SERVE) -> dict:
+def rglru_timing(device, shape=RGLRU_SERVE, return_state: bool = False) -> dict:
     """Phase 3 for rglru_scan at the serving shape, or ``shape`` (f32 a and
-    u, as the model's gates give them).  No single PyTorch call computes a linear
-    recurrence: library_ms is null.  The bound counts a and u read once and
-    h_seq and h_final written once; 2 flops per element."""
+    u, as the model's gates give them; ``return_state`` as training calls
+    it, which for f32 writes nothing more).  No single PyTorch call computes
+    a linear recurrence: library_ms is null.  The bound counts a and u read
+    once and h_seq and h_final written once; 2 flops per element.  ms is
+    timed as every kernel's, the wrapper's host code included; device_ms
+    with the card held while the host queues the calls (at batch 1 the
+    kernels take less time than the wrapper's host code).
+    cuda_launches_per_call is the library's own count of CUDA launches
+    (``kernel.cuda_launches``) over one wrapper call."""
     import torch
-    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
+    from repro_torch.kernels.rglru_scan.kernel import (chunk_length,
+                                                       cuda_launches, n_chunks,
+                                                       rglru_scan_fwd)
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     a, u, h0 = rglru_inputs(shape, torch.float32, device, seed=98)
     B, S, R = a.shape
+    call = lambda: rglru_scan_fwd(a, u, h0, return_state=return_state)
     out = {
-        "ms": time_ms(lambda: rglru_scan_fwd(a, u, h0), 50),
+        "ms": time_ms(call, 50),
         "plain_ms": time_ms(lambda: rglru_scan_ref(a, u, h0), 3, warmup=1),
         "library_ms": None,
+        "device_ms": time_ms(call, 50, hold=True),
+        "cuda_launches_per_call": launches_per_call(call, cuda_launches),
     }
     out["bound_ms"], out["bound_by"] = bound(4 * (3 * B * S * R + B * R),
                                              2 * B * S * R, PEAK_F32_FLOPS)
-    print(f"[timing] rglru_scan at B={B} S={S} R={R} f32 (no single PyTorch "
-          "call computes it: library_ms null): "
+    print(f"[timing] rglru_scan at B={B} S={S} R={R} f32 return_state="
+          f"{return_state}, {n_chunks(S, chunk_length(B, S, R))} chunks (no "
+          "single PyTorch call computes it: library_ms null): "
           + ", ".join(f"{k} {v}" for k, v in out.items()))
     return out
+
+
+def launches_per_call(call, counter) -> int:
+    """What ``counter()`` gains over one ``call()``, run to its end."""
+    import torch
+    before = counter()
+    call()
+    torch.cuda.synchronize()
+    return counter() - before
 
 
 def bwd_kernel_vs_plain(device) -> dict:
@@ -1148,35 +1215,41 @@ def bwd_kernel_vs_plain(device) -> dict:
 
 
 def rglru_bwd_vs_plain(device) -> float:
-    """Phase 2 for rglru_scan_bwd: against ``rglru_scan_bwd_ref`` from the
-    same a, f32 states (the forward kernel's), h0, dh_seq and dh_final, over
-    rglru_scan's grid and the training shape, with and without dh_final.
-    Returns the max abs error at the training shape in f32 (the model's
-    gates are f32: the main path's case)."""
+    """Phase 2 for rglru_scan_bwd over RGLRU_CASES, with and without
+    dh_final, from the same a, f32 states (the forward kernel's), h0 and
+    dh_seq: against ``rglru_scan_bwd_ref`` and, to the bit,
+    ``rglru_scan_bwd_chunked_ref`` with the same chunk.  Returns the max abs
+    error against the oracle at the training shape at batch 1 in f32 (the
+    model's gates are f32: the main path's case)."""
     import torch
-    from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd,
+    from repro_torch.kernels.rglru_scan.kernel import (chunk_length, n_chunks,
+                                                       rglru_scan_bwd,
                                                        rglru_scan_fwd)
-    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+    from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_chunked_ref,
+                                                    rglru_scan_bwd_ref)
     err = None
-    for i, shape in enumerate(RGLRU_GRID + [RGLRU_SERVE]):
+    for i, (shape, given) in enumerate(RGLRU_CASES):
         for name in ("bfloat16", "float32"):
             for with_dhf in (True, False):
                 a, u, h0 = rglru_inputs(shape, getattr(torch, name), device,
                                         seed=600 + i)
                 B, S, R = a.shape
+                chunk = given or chunk_length(B, S, R)
                 g = torch.Generator(device).manual_seed(700 + i)
                 dh = torch.randn(B, S, R, generator=g, device=device).to(a.dtype)
                 dhf = torch.randn(B, R, generator=g, device=device) \
                     if with_dhf else None
-                _, _, h_state = rglru_scan_fwd(a, u, h0, return_state=True)
-                got = rglru_scan_bwd(a, h_state, h0, dh, dhf)
+                _, _, h_state = rglru_scan_fwd(a, u, h0, return_state=True,
+                                               chunk=given)
+                got = rglru_scan_bwd(a, h_state, h0, dh, dhf, chunk=given)
                 torch.cuda.synchronize(device)
                 first = torch.zeros_like(h_state[:, :1]) if h0 is None \
                     else h0[:, None]
-                ref = rglru_scan_bwd_ref(a, torch.cat([first, h_state[:, :-1]], 1),
-                                         dh, dhf)
-                errs = []
-                for what, o, r in zip(("da", "du", "dh0"), got, ref):
+                h_prev = torch.cat([first, h_state[:, :-1]], 1)
+                ref = rglru_scan_bwd_ref(a, h_prev, dh, dhf)
+                mirror = rglru_scan_bwd_chunked_ref(a, h_prev, dh, dhf, chunk)
+                errs, e_mir = [], 0.0
+                for what, o, r, m in zip(("da", "du", "dh0"), got, ref, mirror):
                     tol = TOL[name] if name == "bfloat16" and what != "dh0" \
                         else RGLRU_TOL
                     check(o.dtype == r.dtype and o.shape == r.shape
@@ -1185,13 +1258,19 @@ def rglru_bwd_vs_plain(device) -> float:
                     check(excess <= 0, f"rglru_scan_bwd {what} disagrees with "
                           f"plain at {shape} {name} dh_final={with_dhf}: "
                           f"max|err| {e:.3e} (tol {tol:g})")
+                    check(torch.equal(o, m), f"rglru_scan_bwd {what} is not its "
+                          f"chunked mirror at {shape} {name} dh_final={with_dhf}")
                     errs.append(e)
+                    e_mir = max(e_mir, excess_error(o, m, 0)[0])
                 print(f"[kernel] rglru_scan_bwd {name} (B,S,R,h0,model a)={shape} "
-                      f"dh_final={with_dhf}: max|err| da {errs[0]:.3e}, du "
-                      f"{errs[1]:.3e}, dh0 {errs[2]:.3e} (tol f32 {RGLRU_TOL:g}, "
-                      f"bf16 da and du {TOL['bfloat16']:g}, abs + rel)")
-                if with_dhf:
-                    err = max(errs)  # f32 last: the main path's case
+                      f"dh_final={with_dhf}, {n_chunks(S, chunk)} chunks of "
+                      f"{min(chunk, S)}: max|err| against rglru_scan_bwd_ref da "
+                      f"{errs[0]:.3e}, du {errs[1]:.3e}, dh0 {errs[2]:.3e} (tol "
+                      f"f32 {RGLRU_TOL:g}, bf16 da and du {TOL['bfloat16']:g}, abs "
+                      f"+ rel); against rglru_scan_bwd_chunked_ref {e_mir:.3e} "
+                      "(the bit)")
+                if with_dhf and name == "float32" and shape == RGLRU_TRAIN_B1:
+                    err = max(errs)
     return err
 
 
@@ -1528,9 +1607,12 @@ def rglru_bwd_timing(device, shape=RGLRU_SERVE) -> dict:
     batch 4, or ``shape`` (f32, as the model's gates give a and u).  No single PyTorch call computes the
     gradient of a linear recurrence: library_ms is null.  The bound counts
     a, the f32 states and dh_seq read once, da and du written once (and h0,
-    dh_final, dh0); 3 flops an element."""
+    dh_final, dh0); 3 flops an element.  ms, device_ms and
+    cuda_launches_per_call as in ``rglru_timing``; fwd_ms the forward's ms."""
     import torch
-    from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd,
+    from repro_torch.kernels.rglru_scan.kernel import (chunk_length,
+                                                       cuda_launches, n_chunks,
+                                                       rglru_scan_bwd,
                                                        rglru_scan_fwd)
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
     a, u, _ = rglru_inputs(shape, torch.float32, device, seed=97)
@@ -1540,16 +1622,20 @@ def rglru_bwd_timing(device, shape=RGLRU_SERVE) -> dict:
     dhf = torch.randn(B, R, generator=g, device=device)
     _, _, h_state = rglru_scan_fwd(a, u, return_state=True)
     h_prev = torch.cat([torch.zeros_like(h_state[:, :1]), h_state[:, :-1]], 1)
+    call = lambda: rglru_scan_bwd(a, h_state, None, dh, dhf)
     out = {
-        "ms": time_ms(lambda: rglru_scan_bwd(a, h_state, None, dh, dhf), 50),
+        "ms": time_ms(call, 50),
         "plain_ms": time_ms(lambda: rglru_scan_bwd_ref(a, h_prev, dh, dhf), 3,
                             warmup=1),
         "library_ms": None,
         "fwd_ms": time_ms(lambda: rglru_scan_fwd(a, u), 50),
+        "device_ms": time_ms(call, 50, hold=True),
+        "cuda_launches_per_call": launches_per_call(call, cuda_launches),
     }
     out["bound_ms"], out["bound_by"] = bound(4 * (5 * B * S * R + 2 * B * R),
                                              3 * B * S * R, PEAK_F32_FLOPS)
-    print(f"[timing] rglru_scan_bwd at B={B} S={S} R={R} f32 (no single PyTorch "
+    print(f"[timing] rglru_scan_bwd at B={B} S={S} R={R} f32, "
+          f"{n_chunks(S, chunk_length(B, S, R))} chunks (no single PyTorch "
           "call computes it: library_ms null; fwd_ms: rglru_scan in the same "
           "run): " + ", ".join(f"{k} {v}" for k, v in out.items()))
     return out
@@ -3181,7 +3267,7 @@ def main() -> int:
     ssd_time = ssd_timing(device)
     ssd_bf16_time = ssd_bf16_timing(device)
     rglru_time = rglru_timing(device)
-    rglru_time["batch_1"] = rglru_timing(device, RGLRU_TRAIN_B1)
+    rglru_time["batch_1"] = rglru_timing(device, RGLRU_TRAIN_B1, return_state=True)
     bwd_errs = bwd_kernel_vs_plain(device)
     rglru_bwd_err = rglru_bwd_vs_plain(device)
     ssd_bwd_errs = ssd_bwd_vs_plain(device)
@@ -3408,6 +3494,10 @@ def main() -> int:
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:41",
+        "design": "chunked: a summary kernel then a scan kernel (two CUDA "
+                  "launches a call) with one thread per (batch, chunk, "
+                  "channel), one chunk and one kernel where B x R chains fill "
+                  "the card",
         "launches": launches["recurrentgemma-2b"].get("rglru_scan", 0),
         "training_launches":
             launches["recurrentgemma-2b training"].get("rglru_scan", 0),
@@ -3416,8 +3506,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:41",
         "note": "no TPU counterpart: the gradient of rglru_scan_pallas",
-        "design": "one thread per (batch, channel) walking t backward, 16 "
-                  "steps of loads in flight, f32",
+        "design": "chunked: a summary kernel then a scan kernel (two CUDA "
+                  "launches a call) with one thread per (batch, chunk, "
+                  "channel), one chunk and one kernel where B x R chains fill "
+                  "the card; f32",
         "launches": launches["recurrentgemma-2b training"].get(
             "rglru_scan_bwd", 0),
         "max_abs_err": rglru_bwd_err, **rglru_bwd_time}, *ssd_bwd,

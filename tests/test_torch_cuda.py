@@ -11,18 +11,19 @@ input type (both sides compute in f32 from the same inputs and write f32: the
 f32 bound of ``tests/test_kernels.py``); for the bf16 SSD path's kernels the
 cumsum to the bit, chunk states and final state 2e-4, y one bf16 step, 8e-3
 (both sides round y to bf16 once; the tensor cores take the f32 operands as
-hi + lo bf16 pairs, ``csrc/ssd_bf16.cu``); for the RG-LRU scan 1e-5 on its f32 outputs
-(the kernel takes the plain version's f32 products and sums in the same
-order with the same rounding, so they should agree exactly) and one bf16
-step, 8e-3, on h_seq from bf16 inputs; 1e-4 for f32 model logits through a
+hi + lo bf16 pairs, ``csrc/ssd_bf16.cu``); for the RG-LRU scan the bits of its chunked
+mirror (``rglru_scan_chunked_ref``: the same rounded f32 products and sums
+in the same order), and against the sequential oracle 1e-5 on its f32
+outputs (the order of f32 operations differs where chunks meet) and one
+bf16 step, 8e-3, on h_seq from bf16 inputs; 1e-4 for f32 model logits through a
 few layers, where only the order of sums differs between the card and the
 CPU.  The flash backward's kernels against ``attention_bwd_ref`` from the
 same inputs: 1e-4 on f32 gradients (sums of up to S or G·S terms in another
 order), 2e-2 on bf16 ones (one rounding of each output, and of P and dS
 where a kernel rounds them for its products), 1e-5 on D and on the
-forward's log-sum-exp against ``lse_ref``.  The RG-LRU backward against
-``rglru_scan_bwd_ref``: 1e-5 in f32 (the same rounded sum and product in the
-same order), one bf16 step (8e-3) on bf16 da and du.  The SSD backward's
+forward's log-sum-exp against ``lse_ref``.  The RG-LRU backward the same way against
+``rglru_scan_bwd_chunked_ref`` (the bits) and ``rglru_scan_bwd_ref`` (1e-5 in
+f32, one bf16 step, 8e-3, on bf16 da and du).  The SSD backward's
 kernels against their plain versions from the same inputs: 1e-4 in f32 and
 2e-2 in bf16 inputs, taken relative to each gradient's largest magnitude for
 the gradients that sum over a chunk's rows (all but dchunk_in and dh0, which
@@ -54,9 +55,14 @@ from repro_torch.kernels.pack_fill.kernel import PER_LANE, pack_fill
 from repro_torch.kernels.pack_fill.ref import pack_all_types_ref
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref, lse_ref)
-from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd, rglru_scan_fwd
+from repro_torch.kernels.rglru_scan.kernel import (chunk_length, cuda_launches,
+                                                   n_chunks, rglru_scan_bwd,
+                                                   rglru_scan_fwd)
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref, rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_chunked_ref,
+                                                rglru_scan_bwd_ref,
+                                                rglru_scan_chunked_ref,
+                                                rglru_scan_ref)
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.kernel import (ssd_bwd_chunk, ssd_bwd_dstate,
                                                  ssd_bwd_state_pass, ssd_chunk)
@@ -146,6 +152,13 @@ RGLRU_SHAPES = [  # (B, S, R, h0, model a)
     (2, 300, 100, True, False),         # ragged S and R
     (1, 37, 5, False, False),           # h0 None
     (4, 2048, 2560, False, True),       # recurrentgemma-2b's serving shape
+]
+# ... each in the wrapper's chunks (chunk None: kernel.chunk_length), and
+# chunks given: S 37 in chunks of 16, S 300 in chunks of 64 (neither divides S)
+RGLRU_CASES = [pytest.param(*shape, None, id="-".join(map(str, shape)))
+               for shape in RGLRU_SHAPES] + [
+    pytest.param(2, 37, 70, True, False, 16, id="2-37-70-True-False-chunk16"),
+    pytest.param(2, 300, 100, False, False, 64, id="2-300-100-False-False-chunk64"),
 ]
 RGLRU_TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -331,13 +344,22 @@ def _rglru_inputs(device, dtype, B, S, R, h0, model_a, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,R,h0,model_a", RGLRU_SHAPES)
-def test_rglru_kernel_vs_plain_on_card(cuda_device, B, S, R, h0, model_a, dtype):
+@pytest.mark.parametrize("B,S,R,h0,model_a,chunk", RGLRU_CASES)
+def test_rglru_kernel_vs_plain_on_card(cuda_device, B, S, R, h0, model_a, chunk,
+                                       dtype):
+    """The scan (one launch of the wrapper; two CUDA launches in more than one
+    chunk, else one) against the chunked mirror with the same chunk, to the
+    bit, and the sequential oracle within RGLRU_TOL."""
     a, u, h = _rglru_inputs(cuda_device, dtype, B, S, R, h0, model_a, seed=S + R)
-    before = LAUNCHES["rglru_scan"]
-    hs, h_final = rglru_scan(a, u, h)
+    before, cuda_before = LAUNCHES["rglru_scan"], cuda_launches()
+    hs, h_final = rglru_scan(a, u, h) if chunk is None \
+        else rglru_scan_fwd(a, u, h, chunk=chunk)
     torch.cuda.synchronize()
     assert LAUNCHES["rglru_scan"] == before + 1
+    C = n_chunks(S, chunk or chunk_length(B, S, R))
+    assert cuda_launches() == cuda_before + (2 if C > 1 else 1)
+    mirror = rglru_scan_chunked_ref(a, u, h, chunk or chunk_length(B, S, R))
+    assert torch.equal(hs, mirror[0]) and torch.equal(h_final, mirror[1])
     hs_ref, final_ref = rglru_scan_ref(a, u, h)
     assert hs.dtype == dtype and h_final.dtype == torch.float32
     assert bool(torch.isfinite(hs).all()) and bool(torch.isfinite(h_final).all())
@@ -568,27 +590,31 @@ def test_reduced_train_step_on_card_matches_cpu(cuda_device, arch):
 
 @pytest.mark.parametrize("dhf", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,R,h0,model_a", RGLRU_SHAPES)
+@pytest.mark.parametrize("B,S,R,h0,model_a,chunk", RGLRU_CASES)
 def test_rglru_bwd_kernel_vs_plain_on_card(cuda_device, B, S, R, h0, model_a,
-                                           dtype, dhf):
-    """rglru_scan_bwd (one launch) against rglru_scan_bwd_ref from the same
-    a, f32 states, h0, dh_seq and dh_final."""
+                                           chunk, dtype, dhf):
+    """rglru_scan_bwd (one launch) against rglru_scan_bwd_chunked_ref with
+    the same chunk, to the bit, and rglru_scan_bwd_ref within RGLRU_TOL, from
+    the same a, f32 states, h0, dh_seq and dh_final."""
     a, u, h = _rglru_inputs(cuda_device, dtype, B, S, R, h0, model_a, seed=S * R)
     rng = np.random.default_rng(S)
     dh = torch.from_numpy(rng.normal(size=(B, S, R)).astype(np.float32)).to(
         cuda_device, dtype)
     dh_final = torch.from_numpy(rng.normal(size=(B, R)).astype(np.float32)).to(
         cuda_device) if dhf else None
-    _, _, h_state = rglru_scan_fwd(a, u, h, return_state=True)
+    _, _, h_state = rglru_scan_fwd(a, u, h, return_state=True, chunk=chunk)
     before = LAUNCHES["rglru_scan_bwd"]
-    got = rglru_scan_bwd(a, h_state, h, dh, dh_final)
+    got = rglru_scan_bwd(a, h_state, h, dh, dh_final, chunk=chunk)
     torch.cuda.synchronize()
     assert LAUNCHES["rglru_scan_bwd"] == before + 1
     first = torch.zeros_like(h_state[:, :1]) if h is None else h[:, None]
-    ref = rglru_scan_bwd_ref(a, torch.cat([first, h_state[:, :-1]], 1), dh,
-                             dh_final)
-    for i, (g, r) in enumerate(zip(got, ref)):
+    h_prev = torch.cat([first, h_state[:, :-1]], 1)
+    ref = rglru_scan_bwd_ref(a, h_prev, dh, dh_final)
+    mirror = rglru_scan_bwd_chunked_ref(a, h_prev, dh, dh_final,
+                                        chunk or chunk_length(B, S, R))
+    for i, (g, r, m) in enumerate(zip(got, ref, mirror)):
         assert g.dtype == r.dtype and bool(torch.isfinite(g).all())
+        assert torch.equal(g, m)
         tol = dict(rtol=8e-3, atol=8e-3) if dtype == torch.bfloat16 and i < 2 \
             else RGLRU_TOL
         np.testing.assert_allclose(_np(g), _np(r), **tol)

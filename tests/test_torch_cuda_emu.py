@@ -7,8 +7,9 @@ for ``__syncthreads`` and the warp shuffles, votes and reductions, and for
 ``extern "C"``
 entries with CPU tensors, and held against their plain versions at small
 shapes, at the card's tolerances (``tests/test_torch_cuda.py``): the RG-LRU
-kernels to the bit in f32 (the same rounded sums and products in the same
-order) and one bf16 step in bf16; the SSD backward 1e-4 of each gradient's
+kernels to the bit against their chunked mirrors (the same rounded sums and
+products in the same order), and against the sequential oracles to the bit
+with one chunk, else within 1e-5 in f32 and one bf16 step in bf16; the SSD backward 1e-4 of each gradient's
 largest magnitude (dA: of the sum of its terms' magnitudes; dchunk_in and
 dh0 elementwise) in f32, 2e-2 with bf16 inputs; the packing pass's records,
 budget and counts equal to ``pack_all_types_ref``'s (the same rounded
@@ -33,7 +34,10 @@ import torch
 from repro_torch.kernels.pack_fill.kernel import PER_LANE
 from repro_torch.kernels.pack_fill.ref import pack_all_types_ref
 from torch_pack_cases import PACK_CASES, pack_case
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref, rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_chunked_ref,
+                                                rglru_scan_bwd_ref,
+                                                rglru_scan_chunked_ref,
+                                                rglru_scan_ref)
 from repro_torch.kernels.ssd_scan.ref import (chunk_bwd_ref, chunk_cumsum,
                                               chunk_dstate_ref, pass_states,
                                               ssd_chunk_ref, state_pass_bwd_ref)
@@ -42,6 +46,7 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "kernels"
 V, I = ctypes.c_void_p, ctypes.c_int
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+RGLRU_TOL = 1e-5  # chip_smoke.py's: f32 sums and products taken in another order
 # The bf16 ssd_bwd_chunk's bars (csrc/ssd_bwd_tc.cu), by gradient: dx is
 # written in bf16 (2e-2); ddt, dB, dC and dD are f32 and held at 1e-4, which
 # the hi + lo split of the f32 operands meets and one rounding of them to
@@ -69,8 +74,9 @@ def libs(tmp_path_factory):
                                str(src), str(lib)], capture_output=True, text=True)
         assert proc.returncode == 0, proc.stdout + proc.stderr
         built[name] = ctypes.CDLL(str(lib))
-    built["rglru"].rglru_scan.argtypes = [V] * 6 + [I] * 4 + [V]
-    built["rglru"].rglru_scan_bwd.argtypes = [V] * 8 + [I] * 4 + [V]
+    built["rglru"].rglru_scan.argtypes = [V] * 7 + [I] * 5 + [V]
+    built["rglru"].rglru_scan_bwd.argtypes = [V] * 9 + [I] * 5 + [V]
+    built["rglru"].rglru_scan_kernel_launches.restype = ctypes.c_ulonglong
     built["ssd"].ssd_bwd_dstate.argtypes = [V] * 4 + [I] * 8 + [V]
     built["ssd"].ssd_bwd_state_pass.argtypes = [V] * 7 + [I] * 6 + [V]
     built["ssd"].ssd_bwd_chunk.argtypes = [V] * 17 + [I] * 9 + [V]
@@ -84,32 +90,74 @@ def _ptr(t):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,R,h0,dhf", [(2, 37, 70, True, True),
-                                          (1, 20, 64, False, False)])
-def test_rglru_kernels_emulated(libs, B, S, R, h0, dhf, dtype):
-    """The scan (h_seq, h_final and the f32 states) and its backward against
-    ``rglru_scan_ref`` and ``rglru_scan_bwd_ref``."""
+@pytest.mark.parametrize("B,S,R,h0,dhf,chunk", [
+    # one chunk (chunk >= S): the sequential oracles' bits
+    pytest.param(2, 37, 70, True, True, None, id="2-37-70-True-True"),
+    pytest.param(1, 20, 64, False, False, None, id="1-20-64-False-False"),
+    # C > 1: chunks that do not divide S, with and without h0 and dh_final
+    pytest.param(2, 37, 70, True, True, 16, id="2-37-70-True-True-chunk16"),
+    pytest.param(2, 300, 100, False, True, 64, id="2-300-100-False-True-chunk64"),
+    pytest.param(1, 37, 5, True, False, 5, id="1-37-5-True-False-chunk5"),
+])
+def test_rglru_kernels_emulated(libs, B, S, R, h0, dhf, chunk, dtype):
+    """The scan (h_seq, h_final and the f32 states) and its backward in
+    chunks of ``chunk`` steps (None: one chunk) against the chunked mirrors
+    ``rglru_scan_chunked_ref`` and ``rglru_scan_bwd_chunked_ref`` with the
+    same chunk, to the bit, and against the sequential ``rglru_scan_ref`` and
+    ``rglru_scan_bwd_ref``: to the bit with one chunk, else within
+    ``RGLRU_TOL`` (f32; bf16 outputs one bf16 step); each entry's CUDA
+    launches as the library counts them, two in more than one chunk."""
     g = torch.Generator().manual_seed(S + R)
     a = (0.5 + 0.499 * torch.rand(B, S, R, generator=g)).to(dtype)
     u = torch.randn(B, S, R, generator=g).to(dtype)
     h = torch.randn(B, R, generator=g) if h0 else None
+    one = chunk is None
+    chunk = S if one else chunk
+    C = -(-S // chunk)
+    ws = torch.empty(2, B, C, R) if C > 1 else None
     hs, hf, hst = torch.empty_like(u), torch.empty(B, R), torch.empty(B, S, R)
     isbf = int(dtype == torch.bfloat16)
+    launches = libs["rglru"].rglru_scan_kernel_launches
+    before = launches()
     assert libs["rglru"].rglru_scan(_ptr(a), _ptr(u), _ptr(h), _ptr(hs), _ptr(hf),
-                                    _ptr(hst), B, S, R, isbf, None) == 0
+                                    _ptr(hst), _ptr(ws), B, S, R, chunk, isbf,
+                                    None) == 0
+    assert launches() == before + (2 if C > 1 else 1)
+    mirror, mirror_final = rglru_scan_chunked_ref(a, u, h, chunk)
+    assert torch.equal(hs, mirror) and torch.equal(hf, mirror_final)
+    assert torch.equal(hst, rglru_scan_chunked_ref(a.float(), u.float(), h,
+                                                   chunk)[0])
     ref, ref_final = rglru_scan_ref(a, u, h)
-    assert torch.equal(hs, ref) and torch.equal(hf, ref_final)
-    assert torch.equal(hst, rglru_scan_ref(a.float(), u.float(), h)[0])
+    if one:
+        assert torch.equal(hs, ref) and torch.equal(hf, ref_final)
+        assert torch.equal(hst, rglru_scan_ref(a.float(), u.float(), h)[0])
+    _within(hs, ref, dtype)
+    _within(hf, ref_final, torch.float32)
     dh = torch.randn(B, S, R, generator=g).to(dtype)
     dh_final = torch.randn(B, R, generator=g) if dhf else None
     da, du, dh0 = torch.empty_like(a), torch.empty_like(a), torch.empty(B, R)
     assert libs["rglru"].rglru_scan_bwd(_ptr(a), _ptr(hst), _ptr(h), _ptr(dh),
-                                        _ptr(dh_final), _ptr(da), _ptr(du),
-                                        _ptr(dh0), B, S, R, isbf, None) == 0
+                                        _ptr(dh_final), _ptr(ws), _ptr(da),
+                                        _ptr(du), _ptr(dh0), B, S, R, chunk,
+                                        isbf, None) == 0
+    assert launches() == before + 2 * (2 if C > 1 else 1)
     first = torch.zeros(B, 1, R) if h is None else h[:, None]
-    for got, want in zip((da, du, dh0), rglru_scan_bwd_ref(
-            a, torch.cat([first, hst[:, :-1]], 1), dh, dh_final)):
+    h_prev = torch.cat([first, hst[:, :-1]], 1)
+    mirror = rglru_scan_bwd_chunked_ref(a, h_prev, dh, dh_final, chunk)
+    oracle = rglru_scan_bwd_ref(a, h_prev, dh, dh_final)
+    for got, want, ref in zip((da, du, dh0), mirror, oracle):
         assert torch.equal(got, want)
+        if one:
+            assert torch.equal(got, ref)
+        _within(got, ref, got.dtype)
+
+
+def _within(got, ref, dtype):
+    """RGLRU_TOL (1e-5 abs + rel) in f32, one bf16 step (8e-3) in bf16."""
+    tol = RGLRU_TOL if dtype == torch.float32 else 8e-3
+    d = (got.float() - ref.float()).abs()
+    assert bool(torch.isfinite(got.float()).all())
+    assert (d - tol - tol * ref.float().abs()).max().item() <= 0
 
 
 def _close(what, got, ref, dtype, scale=None, tol=None):
