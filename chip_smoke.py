@@ -125,8 +125,10 @@ Phases; any that fails ends the run with a non-zero exit:
      ``repro_torch.launch.train`` trains full-width qwen3-0.6b (batch 4 x
      2048, random weights) for a few steps, each step with 56 flash_attn_fwd
      launches (28 layers, and 28 again in the rematerialised recompute) and
-     28 of each backward kernel, finite losses, then a checkpoint and a
-     resume that starts at the saved step, then the same launcher with
+     28 of each backward kernel, finite losses, then a checkpoint chain
+     (``resume_chain``: 2 steps and a checkpoint, ``--mesh 1x1`` to step 3,
+     no mesh to step 4, each resumed loss the uninterrupted run's to the
+     bit), then the same launcher with
      ``--mesh 1x1`` (``mesh_train_and_check``: DTensor parameters, moments
      and batch on a mesh of the one card) for MESH_STEPS steps, its losses
      those of the run without a mesh to the bit, the same launches; kernel
@@ -397,8 +399,8 @@ TRAIN_SHAPE = (4, 2048, 16, 8, 64, None, True)  # qwen3-0.6b training attention
 # temporaries (49.1 GB since it updates a large leaf in slices; larger
 # batches not measured since; NVIDIA H100 80GB HBM3, 700.00 W);
 # granite-moe-3b-a800m (56.9 GB) and whisper-medium (18.2 GB) at batch 4.
-# qwen3-0.6b's run is followed by a checkpoint and resume, which take the
-# same launcher path for every model.
+# qwen3-0.6b's run is followed by a checkpoint chain (resume_chain), which
+# takes the same launcher path for every model.
 TRAIN_CELLS = {"qwen3-0.6b": (4, 4), "mamba2-780m": (4, 3),
                "recurrentgemma-2b": (1, 3), "granite-moe-3b-a800m": (4, 3),
                "whisper-medium": (4, 3)}
@@ -1796,10 +1798,9 @@ def train_and_check(device, arch: str) -> dict:
     """Phase 4 for training: ``repro_torch.launch.train`` on full-width
     ``arch`` (batch and steps from TRAIN_CELLS, random weights), its
     launches per step (``TRAIN_PATHS[arch]``, nothing else) and finite
-    losses; after qwen3-0.6b's run a checkpoint at step 2 and a resume that
-    starts there.  Returns the run's numbers and launch counts."""
+    losses; after qwen3-0.6b's run its checkpoint and resume chain
+    (``resume_chain``).  Returns the run's numbers and launch counts."""
     import math
-    import tempfile
     import torch
     from repro_torch.kernels import LAUNCHES
     from repro_torch.launch import train
@@ -1827,23 +1828,65 @@ def train_and_check(device, arch: str) -> dict:
           f"{stats['step_ms']}, tokens/s {stats['tokens_per_s']}, peak memory "
           f"{stats['max_memory_allocated']} bytes")
     if arch == "qwen3-0.6b":
-        with tempfile.TemporaryDirectory() as ckpt:
-            first = train.main(train_argv(arch, 2, "--checkpoint-dir", ckpt,
-                                          "--checkpoint-every", "1000"))
-            del first["state"]
-            resumed = train.main(train_argv(arch, 3, "--checkpoint-dir", ckpt))
-            del resumed["state"]
-        check(resumed["start_step"] == 2 and len(resumed["losses"]) == 1
-              and math.isfinite(resumed["losses"][0]),
-              f"the resumed run started at {resumed['start_step']} with losses "
-              f"{resumed['losses']}")
-        print(f"[train] checkpoint at step 2 and resume: the resumed run starts "
-              f"at step {resumed['start_step']}; its loss "
-              f"{resumed['losses'][0]:.6f}, the uninterrupted run's at that step "
-              f"{stats['losses'][2]:.6f}")
+        stats["resume_chain"] = resume_chain(stats)
     torch.cuda.empty_cache()
     return {"launches": launches, "stats": stats}
 
+
+def resume_chain(plain: dict) -> list:
+    """Phase 4's elastic restart, on ``plain`` (the uninterrupted run of
+    full-width qwen3-0.6b, TRAIN_CELLS's steps): one checkpoint directory
+    through three runs of the launcher, (a) 2 steps without a mesh and a
+    checkpoint, (b) ``--mesh 1x1`` to step 3, a restore onto the mesh
+    (``restore_checkpoint(mesh=, specs=)``), (c) no mesh to step 4, a
+    restore of what (b) wrote from DTensors.  Each resumed run starts at the
+    saved step, its loss is the uninterrupted run's at that step to the bit,
+    its launches are TRAIN_PATHS's, and no process group is left.  Returns
+    each run's loss, checkpoint and restore wall seconds, and peak memory."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import train
+
+    arch = "qwen3-0.6b"
+    want = TRAIN_PATHS[arch]
+    runs = []
+    with tempfile.TemporaryDirectory() as ckpt:
+        for name, upto, mesh in (("a", 2, ()), ("b", 3, ("--mesh", "1x1")),
+                                 ("c", 4, ())):
+            out = train.main(train_argv(arch, upto, "--checkpoint-dir", ckpt,
+                                        "--checkpoint-every", "1000", *mesh))
+            del out["state"]
+            check(not dist.is_initialized(),
+                  f"run ({name}) of the chain left its process group")
+            start = 0 if name == "a" else upto - 1
+            check(out["start_step"] == start and len(out["losses"]) == upto - start,
+                  f"run ({name}) started at {out['start_step']} with losses "
+                  f"{out['losses']}, expected to start at {start}")
+            for i, per_step in enumerate(out["launches"]):
+                check(per_step == want, f"run ({name}) step {start + i + 1} "
+                      f"launched {per_step}, expected {want}")
+            runs.append({
+                "run": name, "mesh": mesh[1] if mesh else None,
+                "start_step": start, "losses": out["losses"],
+                "uninterrupted": plain["losses"][start:upto],
+                "checkpoint_s": out["checkpoint_s"],
+                "restore_s": out["restore_s"],
+                "max_memory_allocated": out["max_memory_allocated"],
+                "plain_max_memory_allocated": plain["max_memory_allocated"]})
+    print(f"[resume] {card_line()}")
+    print("[resume] " + json.dumps(runs))
+    for r in runs:
+        print(f"[resume] ({r['run']}) mesh {r['mesh']}, from step "
+              f"{r['start_step']}: losses {r['losses']} (uninterrupted "
+              f"{r['uninterrupted']}); restore {r['restore_s']} s, checkpoint "
+              f"write {r['checkpoint_s']} s; peak memory "
+              f"{r['max_memory_allocated']} bytes (uninterrupted "
+              f"{r['plain_max_memory_allocated']})")
+    for r in runs:
+        check(r["losses"] == r["uninterrupted"],
+              f"run ({r['run']}) losses {r['losses']} are not the "
+              f"uninterrupted run's {r['uninterrupted']} to the bit")
+    return runs
 
 
 def cluster_launches(arch: str) -> dict:

@@ -20,7 +20,10 @@ mesh of D*M ranks, one device each: the parameters and moments placed by
 (one process per device); with none, a 1 x 1 mesh runs on a group of this
 process alone.  A mesh that needs more ranks or devices than there are
 raises.  On one card the only real mesh is 1 x 1, which computes what the
-run without a mesh computes.
+run without a mesh computes.  A run resumes on any mesh, or none, whatever
+mesh wrote its checkpoint: the restore places each rank's blocks straight
+from the file (``restore_checkpoint(mesh=, specs=)``), and a save on a mesh
+of several ranks is written once, by rank 0.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from ..kernels import LAUNCHES
 from ..kernels.shards import is_dtensor
 from ..models import lm
 from ..models.params import flatten, unflatten
-from ..models.sharding import distribute, mesh_context
+from ..models.sharding import mesh_context, place_flat
 from ..models.steps import enc_embeds, init_train_state, make_train_step
 from ..train.checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
 from ..train.optimizer import OptConfig
@@ -76,25 +79,19 @@ def _start_mesh(spec: str, device: torch.device):
         raise
 
 
-def _placed(state, cfg, mesh):
-    """The train state as DTensors: parameters and both moments by
-    ``lm.param_pspecs``; the step count stays a plain tensor."""
-    specs = flatten(lm.param_pspecs(cfg, mesh))
-
-    def place(tree):
-        return unflatten({k: distribute(t, mesh, specs[k]).requires_grad_(
-            t.requires_grad) for k, t in flatten(tree).items()})
-
-    return {"params": place(state["params"]),
-            "opt": {"m": place(state["opt"]["m"]),
-                    "v": place(state["opt"]["v"]),
-                    "step": state["opt"]["step"]}}
+def _state_specs(cfg, mesh) -> dict:
+    """The train state's specs: the parameters and both AdamW moments by
+    ``lm.param_pspecs``; the step count, outside them, stays a plain
+    tensor."""
+    ps = lm.param_pspecs(cfg, mesh)
+    return {"params": ps, "opt": {"m": ps, "v": ps}}
 
 
 def main(argv=None):
     """Train; returns the final state with the run's per-step losses, step
-    times (host clock, synchronised), kernel launches and peak device
-    memory."""
+    times (host clock, synchronised), kernel launches, peak device memory,
+    and the wall seconds of its restore and of its last checkpoint (the
+    snapshot and the write; None without one)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m", choices=sorted(ARCHS))
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
@@ -118,15 +115,26 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
 
-    start_step = 0
-    state = init_train_state(cfg, torch.Generator(device).manual_seed(args.seed))
-    if args.checkpoint_dir and latest_step(args.checkpoint_dir) is not None:
-        state, start_step, _ = restore_checkpoint(args.checkpoint_dir,
-                                                  device=device)
-        print(f"[train] resumed from step {start_step}")
     mesh, started = _start_mesh(args.mesh, device) if args.mesh else (None, False)
     try:
-        return _train(args, cfg, device, state, start_step, mesh)
+        specs = _state_specs(cfg, mesh) if mesh is not None else None
+        start_step, restore_s = 0, None
+        if args.checkpoint_dir and latest_step(args.checkpoint_dir) is not None:
+            _sync(device)
+            t = time.perf_counter()
+            state, start_step, _ = restore_checkpoint(
+                args.checkpoint_dir, device=device, mesh=mesh, specs=specs)
+            _sync(device)
+            restore_s = time.perf_counter() - t
+            print(f"[train] resumed from step {start_step}")
+        else:
+            state = init_train_state(
+                cfg, torch.Generator(device).manual_seed(args.seed))
+            state = unflatten(place_flat(flatten(state).items(), mesh,
+                                         flatten(specs or {})))
+        out = _train(args, cfg, device, state, start_step, mesh)
+        out["restore_s"] = restore_s
+        return out
     finally:
         if started:
             import torch.distributed as dist
@@ -134,9 +142,6 @@ def main(argv=None):
 
 
 def _train(args, cfg, device, state, start_step: int, mesh):
-    if mesh is not None:
-        state = _placed(state, cfg, mesh)
-
     oc = OptConfig(lr=args.lr, total_steps=max(args.steps, 1000))
     step_fn = make_train_step(cfg, oc)
     src = SyntheticTokens(cfg.vocab, args.batch, args.seq, seed=args.seed,
@@ -176,14 +181,18 @@ def _train(args, cfg, device, state, start_step: int, mesh):
             print(f"[train] step={step + 1} loss={loss:.4f} tok/s={tps:,.0f}")
         if ckpt and (step + 1) % args.checkpoint_every == 0:
             ckpt.save(state, step + 1)
+    checkpoint_s = None
     if ckpt:
+        t = time.perf_counter()
         ckpt.save(state, args.steps)
         ckpt.wait()
+        checkpoint_s = time.perf_counter() - t
         print(f"[train] checkpointed at {args.checkpoint_dir}")
     return {"state": state, "arch": cfg.name, "device": str(device),
             "start_step": start_step, "steps": args.steps,
             "tokens_per_step": tok_per_step, "losses": losses,
             "step_ms": step_ms, "launches": launches,
+            "checkpoint_s": checkpoint_s,
             "max_memory_allocated": torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None}
 

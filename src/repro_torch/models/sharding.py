@@ -243,11 +243,14 @@ def placements_for(shape, axes, mesh: Mesh, rules=PARAM_RULES) -> tuple:
     return placements(spec_for(shape, axes, mesh, rules), mesh)
 
 
-def distribute(t: torch.Tensor, mesh: Mesh, spec: Sequence):
+def distribute(t: torch.Tensor, mesh: Mesh, spec: Sequence, device=None):
     """The DTensor placed by ``spec`` whose global value is ``t``, a tensor
-    every rank holds whole and alike (a seeded init, a deterministic batch):
-    each rank keeps its own block, with no communication.  On a 1 x 1 mesh
-    the shard is ``t`` itself."""
+    every rank holds whole and alike (a seeded init, a deterministic batch,
+    an array read from a checkpoint): each rank keeps its own block, the
+    ``chunk`` of each sharded dimension at its mesh coordinate, in mesh
+    order, with no communication.  With ``device`` only the block is copied
+    there, so a host tensor's other blocks never reach this rank's device.
+    On a 1 x 1 mesh without a device the shard is ``t`` itself."""
     from torch.distributed.tensor import DTensor, Shard
     dm = mesh.device_mesh
     place = placements(spec, mesh)
@@ -256,8 +259,25 @@ def distribute(t: torch.Tensor, mesh: Mesh, spec: Sequence):
     for i, p in enumerate(place):
         if isinstance(p, Shard):
             local = local.chunk(dm.size(i), dim=p.dim)[coord[i]]
+    if device is not None:
+        local = local.to(device, copy=True)
     return DTensor.from_local(local.contiguous(), dm, place, run_check=False,
                               shape=t.shape, stride=t.stride())
+
+
+def place_flat(items, mesh: Optional[Mesh], specs: dict, device=None) -> dict:
+    """{flat key: tensor} of ``(flat key, tensor)`` pairs, taken one at a
+    time: a key that ``specs`` (flat key -> spec) covers as ``distribute``
+    places it on ``mesh``, every other key a plain tensor on ``device``
+    (where it is, without one).  A checkpoint's restore and the train
+    launcher's fresh state are both placed by it."""
+    out = {}
+    for k, t in items:
+        if k in specs:
+            out[k] = distribute(t, mesh, specs[k], device)
+        else:
+            out[k] = t if device is None else t.to(device)
+    return out
 
 
 def einsum(eq: str, a, b):
